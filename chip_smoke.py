@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py          # from the repo root; needs one card
+
+Phases (any failure exits non-zero; none is caught and passed over):
+  1. the card's name and power limit, as nvidia-smi reports them;
+  2. build every CUDA kernel from the repo's sources (one nvcc per source,
+     all at once) and print the build seconds and ptxas's report;
+  3. hold each kernel against its plain PyTorch version on the card, at
+     the test shapes and at the serving path's shapes; time the kernel, the
+     plain version and one PyTorch library call computing the same function
+     (a yardstick the port never calls), each with a cold L2;
+  4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
+     32 generated tokens) through ``repro_torch.launch.serve.run`` with
+     random weights from a seeded generator on the card; count the kernel
+     launches of that run; hold its logits against the same prompts run
+     through the plain path (every kernel replaced by its plain version);
+  5. print one ``{"kernels": [...]}`` line, then the result line
+     ``{"ok": true, "device": {...}}`` last.
+
+Imports nothing of JAX and nothing of the JAX package ``src/repro``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+# published peaks by model (NVIDIA data sheets; dense, no sparsity):
+# (device memory bytes/s, bf16 tensor-core flop/s, fp32 non-tensor flop/s)
+PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12),
+         "H100": (3.35e12, 989e12, 67e12)}          # SXM (80GB HBM3)
+ARCH, BATCH, PROMPT, GEN, SEED = "internlm2-1.8b", 4, 512, 32, 0
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+RMSNORM_TOL = 2e-2
+# The serving run vs the plain path, max |diff| / max |logit|: 24 layers
+# with a bf16 residual stream (48 bf16 adds) turn one-ulp rounding
+# differences into ~3% on the logits; two plain paths that differ only in
+# rounding (chunked vs reference attention) are printed as that noise
+# floor. A wiring, masking or offset fault moves the logits by far more.
+LOGITS_REL_TOL = 6e-2
+
+
+def card_peaks(name: str) -> tuple[float, float, float]:
+    for key, peaks in PEAKS.items():
+        if key in name:
+            return peaks
+    raise SystemExit(f"chip_smoke: no published peaks for card {name!r}")
+
+
+class ColdTimer:
+    """Mean device ms of ``fn`` over ``n`` launches, each after reading a
+    buffer larger than the 50 MB L2 (a read leaves no dirty lines for the
+    timed launch to write back), with CUDA events around the launch only."""
+
+    def __init__(self, dev: torch.device):
+        self.flush = torch.ones(32 << 20, dtype=torch.float32, device=dev)
+
+    def __call__(self, fn, n: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+        for start, end in pairs:
+            self.flush.sum()
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / n
+
+
+def require(ok: bool, what) -> None:
+    """A check that ``python -O`` keeps: fail the run with ``what``."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def rel_err(ref: torch.Tensor, out: torch.Tensor) -> float:
+    ref, out = ref.float(), out.float()
+    return float((ref - out).abs().max() / (ref.abs().max() + 1e-9))
+
+
+# ------------------------------------------------------------------ phase 3
+def check_rmsnorm(dev, timer, peaks):
+    from repro_torch.kernels.rmsnorm import ops, ref
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8),
+              (BATCH * PROMPT, 2048), (BATCH, 1, 2048)]
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            w = torch.randn(shape[-1:], generator=g, device=dev)
+            err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+            torch.cuda.synchronize()
+            print(f"rmsnorm {shape} {dtype}: max_abs_err {err:.3g}")
+            require(err <= RMSNORM_TOL, (shape, dtype, err))
+            if dtype == torch.bfloat16 and shape[-1] == 2048:
+                rows[shape] = (x, w, err)
+    out = None
+    for shape, (x, w, err) in rows.items():
+        d = x.shape[-1]
+        w_lib = w.to(x.dtype)
+        nbytes = 2 * x.numel() * x.element_size() + d * 4
+        flops = 4 * x.numel()            # square+sum, scale, weight (fp32)
+        t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[2] * 1e3
+        r = {"ms": timer(lambda: ops.rmsnorm(x, w)),
+             "plain_ms": timer(lambda: ref.rmsnorm_ref(x, w)),
+             # the fused library kernel wants the weight in x's dtype
+             "library_ms": timer(lambda: F.rms_norm(x, (d,), w_lib, 1e-5)),
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "max_abs_err": err}
+        print(f"rmsnorm {shape} bf16: " + json.dumps(r))
+        if shape == (BATCH * PROMPT, 2048):
+            out = r
+    return out
+
+
+def check_flash(dev, timer, peaks):
+    from repro_torch.kernels.flash_attention import ops, ref
+    g = torch.Generator(device=dev).manual_seed(2)
+    cases = [  # B, Sq, Sk, H, KV, D, causal, window, qoff
+        (2, 128, 128, 4, 2, 64, True, 0, 0),
+        (1, 256, 256, 8, 8, 32, True, 0, 0),
+        (2, 128, 128, 4, 4, 64, True, 16, 0),
+        (1, 64, 128, 4, 2, 64, True, 0, 64),
+        (2, 128, 128, 2, 1, 128, False, 0, 0),
+        (1, 512, 512, 2, 2, 64, True, 128, 0),
+        (1, 15, 15, 2, 2, 64, True, 0, 0),
+        (2, 32, 96, 4, 2, 64, True, 24, 0),            # + per-row offsets
+        (BATCH, PROMPT, PROMPT + GEN, 16, 8, 128, True, 0, 0),  # prefill
+    ]
+    for i, (b, sq, sk, h, kvh, d, causal, window, qoff) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, sk, kvh, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, sk, kvh, d, generator=g, device=dev).to(dtype)
+            off = qoff + torch.arange(b, dtype=torch.int32, device=dev) * (
+                50 if i == 7 else 0)
+            kw = dict(causal=causal, window=window)
+            err = max_err(ops.flash_attention(q, k, v, off, **kw),
+                          ref.attention_ref(q, k, v, off, **kw))
+            torch.cuda.synchronize()
+            print(f"flash {(b, sq, sk, h, kvh, d, causal, window, qoff)} "
+                  f"{dtype}: max_abs_err {err:.3g}")
+            require(err <= FLASH_TOL[dtype], (i, dtype, err))
+    # the prefill shape, bf16, timed
+    b, sq, sk, h, kvh, d = cases[-1][:6]
+    q = torch.randn(b, sq, h, d, generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(b, sk, kvh, d, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    off = torch.zeros(b, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, window=0)
+    err = max_err(ops.flash_attention(q, k, v, off, **kw),
+                  ref.attention_ref(q, k, v, off, **kw))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=True, enable_gqa=True)
+    lib_err = max_err(lib().transpose(1, 2), ref.attention_ref(q, k, v, off, **kw))
+    # the work this data needs: each query row against its unmasked keys
+    pairs = b * h * sum(min(i + 1, sk) for i in range(sq))
+    flops = 4 * d * pairs                   # q·k and p·v, 2 flops per MAC
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + off.numel() * 4
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    out = {"ms": timer(lambda: ops.flash_attention(q, k, v, off, **kw)),
+           "plain_ms": timer(lambda: ref.attention_ref(q, k, v, off, **kw)),
+           "library_ms": timer(lib),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    print(f"flash {tuple(q.shape)} x {tuple(k.shape)} bf16 causal: "
+          + json.dumps(out) + f" (library vs plain max_abs_err {lib_err:.3g})")
+    return out
+
+
+# ------------------------------------------------------------------ phase 4
+def plain_last_logits(cfg, params, tokens, attn_impl="chunked"):
+    """The dense forward with every kernel replaced by plain torch:
+    ``rmsnorm_ref``, and the ``chunked`` attention (fp32 online softmax, as
+    the kernel computes it) or the ``reference`` one; last-position logits."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.models import layers, lm
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    b, s = tokens.shape
+    h = lm.embed_lookup(cfg, params["embed"], tokens)
+    pos = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], params["blocks"])
+        x = rmsnorm_ref(h, p["ln1"], cfg.norm_eps)
+        h = h + layers.attn_block(cfg, p["attn"], x, pos, window=None)[0]
+        x = rmsnorm_ref(h, p["ln2"], cfg.norm_eps)
+        h = h + layers.mlp_block(p["mlp"], x)
+    h = rmsnorm_ref(h[:, -1], params["final_norm"], cfg.norm_eps)
+    return h @ params["lm_head"]
+
+
+def serve_full(dev):
+    from repro_torch import configs
+    from repro_torch.data import synth
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.launch import serve
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
+    t0 = time.perf_counter()
+    params = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = synth.lm_tokens(SEED, BATCH * PROMPT + 1, cfg.vocab_size)[
+        :BATCH * PROMPT].reshape(BATCH, PROMPT)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+
+    serve.run(cfg, params, prompts, 2)            # warm-up: cuBLAS, libraries
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa_ops.flash_attention.launches = 0
+    rn_ops.rmsnorm.launches = 0
+    res = serve.run(cfg, params, prompts, GEN)    # the main path
+    launches = {"flash_attention": fa_ops.flash_attention.launches,
+                "rmsnorm": rn_ops.rmsnorm.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    tok_s = BATCH * (GEN - 1) / res.decode_s
+    print(f"serve: prefill {res.prefill_s * 1e3:.2f} ms; decode "
+          f"{res.decode_s * 1e3:.2f} ms for {GEN - 1} steps ({tok_s:.1f} tok/s); "
+          f"peak memory {peak_gb:.2f} GB; launches {launches}")
+
+    forwards = GEN                                # one prefill + GEN-1 decodes
+    require(launches["flash_attention"] == cfg.num_layers, launches)
+    require(launches["rmsnorm"] == (2 * cfg.num_layers + 1) * forwards, launches)
+    require(tuple(res.tokens.shape) == (BATCH, GEN), res.tokens.shape)
+    require(0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab_size,
+            "tokens out of the vocabulary")
+    for t in (res.prefill_logits, res.last_logits):
+        require(t.shape == (BATCH, cfg.vocab_size) and bool(torch.isfinite(t).all()),
+                "logits of the wrong shape or not finite")
+
+    with torch.inference_mode():
+        tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+        plain_prefill = plain_last_logits(cfg, params, tokens)
+        seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
+        plain_last = plain_last_logits(cfg, params, seq)
+        floor = {"prefill": rel_err(plain_prefill, plain_last_logits(
+                     cfg, params, tokens, "reference")),
+                 "last_decode": rel_err(plain_last, plain_last_logits(
+                     cfg, params, seq, "reference"))}
+    errs = {"prefill": rel_err(plain_prefill, res.prefill_logits),
+            "last_decode": rel_err(plain_last, res.last_logits)}
+    print(f"serve vs plain path (max |diff| / max |logit|): {errs}; "
+          f"noise floor between two plain paths: {floor}; "
+          f"first sequence {res.tokens[0][:16].tolist()}")
+    require(all(e < LOGITS_REL_TOL for e in errs.values()), errs)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    peaks = card_peaks(name)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {name}; "
+          f"peaks {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s bf16, "
+          f"{peaks[2] / 1e12:.0f} TFLOP/s fp32")
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    print(f"built {len(logs)} of {len(_build.sources())} kernel libraries in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for src, log in logs.items():
+        report = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"{os.path.relpath(src, ROOT)}:\n  " + "\n  ".join(report))
+
+    timer = ColdTimer(dev)
+    rows = {"rmsnorm": check_rmsnorm(dev, timer, peaks),
+            "flash_attention": check_flash(dev, timer, peaks)}
+    del timer
+    launches = serve_full(dev)
+
+    meta = {
+        "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/rmsnorm.py:28"),
+        "flash_attention": (
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:109"),
+    }
+    kernels = [{"name": k, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[k], **rows[k]}
+               for k, (source, replaces) in meta.items()]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

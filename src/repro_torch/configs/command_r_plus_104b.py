@@ -1,0 +1,12 @@
+"""command-r-plus-104b — dense GQA, no-bias, 256k vocab
+[hf:CohereForAI/c4ai-command-r-v01; unverified]."""
+from ..models.config import ArchConfig
+
+CONFIG = ArchConfig(
+    name="command-r-plus-104b", family="dense",
+    num_layers=64, d_model=12288, num_heads=96, num_kv_heads=8,
+    d_ff=33792, vocab_size=256000,
+    use_bias=False,
+    grad_accum=1,
+    train_ruleset="train_fsdp",
+)

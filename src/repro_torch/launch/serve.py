@@ -1,0 +1,113 @@
+"""Batched serving: prefill a batch of prompts, decode greedily.
+
+Twin of the JAX package's ``launch/serve.py``, with two more flags:
+``--device`` (default ``cuda``; asking for it without a card raises) and
+``--attn-impl`` (default ``flash``, so prefill goes through the
+FlashAttention kernel). ``run`` is the library entry point; ``main`` and
+``chip_smoke.py`` both call it.
+
+    python -m repro_torch.launch.serve --full          # on the card
+    python -m repro_torch.launch.serve --device cpu    # reduced, on the CPU
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from .. import configs
+from ..data import synth
+from ..device import resolve
+from ..models import registry
+from ..models.config import ArchConfig
+from ..train import steps
+
+
+@dataclasses.dataclass
+class ServeResult:
+    tokens: torch.Tensor          # (B, gen_tokens) int32 greedy tokens, on the host
+    prefill_logits: torch.Tensor  # (B, V) logits after the prompt
+    last_logits: torch.Tensor     # (B, V) logits of the last decode step
+    prefill_s: float
+    decode_s: float
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run(cfg: ArchConfig, params: Any, prompts, gen_tokens: int, *,
+        device: str | torch.device | None = None) -> ServeResult:
+    """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
+    (the first comes from the prefill logits). ``params`` must live on
+    ``device`` (default ``cuda``)."""
+    dev = resolve(device)
+    tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
+    max_len = tokens.shape[1] + gen_tokens
+    with torch.inference_mode():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+                                           max_len=max_len)
+        _sync(dev)
+        t_prefill = time.perf_counter() - t0
+        prefill_logits = logits
+
+        out = [logits.argmax(-1).to(torch.int32)[:, None]]
+        t0 = time.perf_counter()
+        for _ in range(gen_tokens - 1):
+            logits, cache = steps.decode_step(cfg, params, out[-1], cache)
+            out.append(logits.argmax(-1).to(torch.int32)[:, None])
+        _sync(dev)
+        t_decode = time.perf_counter() - t0
+    return ServeResult(tokens=torch.cat(out, 1).cpu(),
+                       prefill_logits=prefill_logits, last_logits=logits,
+                       prefill_s=t_prefill, decode_s=t_decode)
+
+
+def main(argv: list[str] | None = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="internlm2-1.8b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-tokens", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--attn-impl", default="flash",
+                    choices=("reference", "chunked", "flash"))
+    args = ap.parse_args(argv)
+
+    dev = resolve(args.device)
+    cfg = configs.get(args.arch)
+    if args.reduced:
+        cfg = configs.reduced(cfg)
+    cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    if cfg.family == "audio":
+        raise SystemExit("use an LM-family arch for serve (enc-dec decode "
+                         "is exercised in tests)")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = registry.init(cfg, gen, dev)
+
+    toks = synth.lm_tokens(args.seed, args.batch * args.prompt_len + 1,
+                           cfg.vocab_size)
+    prompts = toks[:args.batch * args.prompt_len].reshape(
+        args.batch, args.prompt_len)
+    res = run(cfg, params, prompts, args.gen_tokens, device=dev)
+
+    tok_s = args.batch * (args.gen_tokens - 1) / max(res.decode_s, 1e-9)
+    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+          f"gen={args.gen_tokens} device={dev} attn_impl={cfg.attn_impl}")
+    print(f"prefill {res.prefill_s*1e3:.1f} ms; decode {res.decode_s*1e3:.1f} ms "
+          f"({tok_s:.1f} tok/s)")
+    print("first sequence:", res.tokens[0][:16].tolist())
+
+
+if __name__ == "__main__":
+    main()

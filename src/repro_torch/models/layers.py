@@ -1,0 +1,239 @@
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention with a KV
+cache, gated MLP (twin of the JAX package's ``models/layers.py``).
+
+Plain functions on tensors over the reference's dict parameter tree.
+``rmsnorm`` always goes through the RMSNorm kernel's wrapper, and
+``gqa_attention`` with ``impl="flash"`` and ``S_q > 1`` through the
+FlashAttention wrapper; on CPU tensors both wrappers take their plain
+versions. ``ring_update``, ``attn_block_ring`` and ``cross_attn_block`` come
+with the windowed and audio families (ROADMAP queue 1 item 8).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import ops as flash_ops
+from ..kernels.flash_attention.ops import GLOBAL_WINDOW
+from ..kernels.rmsnorm import ops as rmsnorm_ops
+from .params import P
+
+__all__ = ["GLOBAL_WINDOW", "rmsnorm_defs", "rmsnorm", "rope_freqs",
+           "apply_rope", "attention_defs", "gqa_attention", "attn_block",
+           "mlp_defs", "mlp_block"]
+
+
+# --------------------------------------------------------------------------- norm
+def rmsnorm_defs(d: int) -> P:
+    return P((d,), ("embed",), init="ones", dtype=torch.float32)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
+            ) -> torch.Tensor:
+    return rmsnorm_ops.rmsnorm(x, w, eps)
+
+
+# --------------------------------------------------------------------------- rope
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple | None = None) -> torch.Tensor:
+    """Rotary embedding, computed in fp32 and cast back to ``x.dtype``.
+
+    x: (B, S, H, D). positions: (B, S) integer positions.
+    """
+    if mrope_sections is not None:
+        raise NotImplementedError(
+            "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
+    d = x.shape[-1]
+    # rope_freqs on the tensor's device (float64 as numpy computes it), so
+    # the decode loop makes no host-to-device copy per layer
+    exps = torch.arange(0, d, 2, dtype=torch.float64, device=x.device) / d
+    freqs = (1.0 / theta ** exps).float()                     # (d/2,)
+    ang = positions.float()[..., None] * freqs                # (B, S, d/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- attention
+def attention_defs(cfg) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    defs = {
+        "wq": P((d, h, hd), ("embed", "heads", None)),
+        "wk": P((d, kv, hd), ("embed", "kv_heads", None)),
+        "wv": P((d, kv, hd), ("embed", "kv_heads", None)),
+        "wo": P((h, hd, d), ("heads", None, "embed")),
+    }
+    if cfg.use_bias:
+        defs["bq"] = P((h, hd), ("heads", None), init="zeros")
+        defs["bk"] = P((kv, hd), ("kv_heads", None), init="zeros")
+        defs["bv"] = P((kv, hd), ("kv_heads", None), init="zeros")
+    return defs
+
+
+def _sdpa_reference(q, k, v, mask) -> torch.Tensor:
+    """Grouped-query scaled-dot-product attention, fp32 softmax.
+
+    q: (B, S_q, KV, G, D) — G = q heads per kv head.
+    k, v: (B, S_k, KV, D). mask: broadcastable to (B, KV, G, S_q, S_k).
+    """
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * scale
+    logits = torch.where(mask, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+
+
+def _sdpa_chunked(qg, k, v, q_pos, k_pos, *, causal, window, valid_len,
+                  chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention looped over KV chunks (the reference's XLA
+    flash-style path, in plain torch). qg: (B, Sq, KV, G, D); k/v: (B, Sk,
+    KV, D)."""
+    b, sq, kvh, g, d = qg.shape
+    sk = k.shape[1]
+    chunk = min(chunk, sk)
+    pad = (-sk) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad), value=-(1 << 30))
+    nc = (sk + pad) // chunk
+    scale = d ** -0.5
+    qf = qg.float()
+    m = torch.full((b, kvh, g, sq), -1e30, device=qg.device)
+    l = torch.zeros((b, kvh, g, sq), device=qg.device)
+    acc = torch.zeros((b, kvh, g, sq, d), device=qg.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        k_i, v_i, kp_i = k[:, sl], v[:, sl], k_pos[:, sl]
+        logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k_i.float()) * scale
+        rel = q_pos[:, None, None, :, None] - kp_i[:, None, None, None, :]
+        mask = kp_i[:, None, None, None, :] >= 0
+        if causal:
+            mask = mask & (rel >= 0)
+        if window is not None:
+            mask = mask & (rel < window)
+        if valid_len is not None:
+            mask = mask & (kp_i[:, None, None, None, :]
+                           < valid_len[:, None, None, None, None])
+        logits = torch.where(mask, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p, v_i.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.movedim(-2, 1).reshape(b, sq, kvh, g, d).to(qg.dtype)
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, k_pos: torch.Tensor,
+                  *, causal: bool, window: int | None,
+                  valid_len: torch.Tensor | None = None,
+                  impl: str = "reference") -> torch.Tensor:
+    """GQA attention with positional masking.
+
+    q: (B, S_q, H, D); k/v: (B, S_k, KV, D); q_pos: (B, S_q); k_pos: (B, S_k)
+    valid_len: optional (B,) number of live cache slots (decode).
+    Returns (B, S_q, H, D).
+
+    As in the reference, the flash path masks only by the query offset
+    ``q_pos[:, 0]``, causality and the window: it ignores ``k_pos`` and
+    ``valid_len`` (prefill into a longer cache is right because causality
+    hides the empty slots).
+    """
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    if impl == "flash" and sq > 1:
+        return flash_ops.flash_attention(
+            q, k, v, q_offset=q_pos[:, 0].to(torch.int32).contiguous(),
+            causal=causal,
+            window=window if window is not None else GLOBAL_WINDOW)
+    qg = q.reshape(b, sq, kvh, g, d)
+    if impl == "chunked" and sq > 1:
+        out = _sdpa_chunked(qg, k, v, q_pos, k_pos, causal=causal,
+                            window=window, valid_len=valid_len)
+        return out.reshape(b, sq, h, d)
+    rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
+    mask = torch.ones((b, 1, 1, sq, k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    if causal:
+        mask = mask & (rel >= 0)
+    if window is not None:
+        mask = mask & (rel < window)
+    if valid_len is not None:
+        mask = mask & (torch.arange(k.shape[1], device=q.device)
+                       < valid_len[:, None, None, None, None])
+    out = _sdpa_reference(qg, k, v, mask)
+    return out.reshape(b, sq, h, d)
+
+
+def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+               *, window: int | None, causal: bool = True,
+               kv_cache: tuple | None = None, cache_pos: int | None = None,
+               mrope_positions=None) -> tuple[torch.Tensor, tuple | None]:
+    """Self-attention block (no residual/norm — caller owns those).
+
+    kv_cache: optional (k_cache, v_cache), each (B, S_max, KV, D);
+    cache_pos: int — write offset (decode step / prefill fill).
+    Returns (out, cache). The reference returns an updated copy of the
+    cache (and its serve loop donates the old one); here the new K/V are
+    written in place into ``kv_cache``'s tensors, which are returned.
+    """
+    if mrope_positions is not None:
+        raise NotImplementedError(
+            "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.use_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        kc, vc = kv_cache
+        kc[:, cache_pos:cache_pos + s] = k.to(kc.dtype)
+        vc[:, cache_pos:cache_pos + s] = v.to(vc.dtype)
+        k_full, v_full = kc, vc
+        k_pos = torch.arange(kc.shape[1], dtype=torch.int32,
+                             device=x.device).expand(b, -1)
+        valid = torch.full((b,), cache_pos + s, dtype=torch.int32,
+                           device=x.device)
+        new_cache = (kc, vc)
+    else:
+        k_full, v_full = k, v
+        k_pos = positions
+        valid = None
+        new_cache = None
+
+    out = gqa_attention(q, k_full, v_full, positions, k_pos,
+                        causal=causal, window=window, valid_len=valid,
+                        impl=cfg.attn_impl)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+
+
+# --------------------------------------------------------------------------- mlp
+def mlp_defs(d: int, d_ff: int) -> dict:
+    return {
+        "w_gate": P((d, d_ff), ("embed", "mlp")),
+        "w_up": P((d, d_ff), ("embed", "mlp")),
+        "w_down": P((d_ff, d), ("mlp", "embed")),
+    }
+
+
+def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]

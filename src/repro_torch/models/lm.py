@@ -1,0 +1,155 @@
+"""Decoder-only LM, dense family (twin of the JAX package's ``models/lm.py``).
+
+The reference scans stacked ``blocks`` with ``jax.lax.scan``; here a Python
+loop walks the layer index over the same stacked tensors. The KV cache is
+one stacked (layers, B, S_max, KV, D) tensor per K and V, written in place
+layer by layer (the reference's serve loop donates its cache instead).
+
+The other families raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from . import layers
+from .config import ArchConfig
+from .params import P, init_params, tree_map
+
+
+class LMOut(NamedTuple):
+    logits: torch.Tensor
+    cache: Any
+    aux_loss: torch.Tensor
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense":
+        item = 1 if cfg.family == "ssm" else 8
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"(ROADMAP queue 1 item {item})")
+
+
+# ---------------------------------------------------------------------------
+# parameter definitions
+# ---------------------------------------------------------------------------
+def _attn_layer_defs(cfg: ArchConfig) -> dict:
+    d = {"ln1": layers.rmsnorm_defs(cfg.d_model),
+         "attn": layers.attention_defs(cfg)}
+    if cfg.d_ff:
+        d["ln2"] = layers.rmsnorm_defs(cfg.d_model)
+        d["mlp"] = layers.mlp_defs(cfg.d_model, cfg.d_ff)
+    return d
+
+
+def _stack(defs: Any, n: int) -> Any:
+    """Prepend a 'layers' dim to every P leaf."""
+    return tree_map(lambda p: P((n,) + p.shape, ("layers",) + p.axes, p.init,
+                                p.scale, p.dtype), defs)
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    _require_dense(cfg)
+    d, v = cfg.d_model, cfg.vocab_size
+    defs: dict = {
+        "embed": P((v, d), ("vocab", "embed")),
+        "final_norm": layers.rmsnorm_defs(d),
+        "blocks": _stack(_attn_layer_defs(cfg), cfg.num_layers),
+    }
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = P((d, v), ("embed", "vocab"))
+    return defs
+
+
+def init(cfg: ArchConfig, generator: torch.Generator,
+         device: torch.device | str) -> dict:
+    return init_params(param_defs(cfg), generator, device)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device | str) -> dict:
+    """Dense KV cache; ``pos`` (the next write offset) is a host int."""
+    _require_dense(cfg)
+    if cfg.window_cache and cfg.window is not None and cfg.global_every:
+        raise NotImplementedError(
+            f"{cfg.name}: ring KV caches come with the windowed family "
+            "(ROADMAP queue 1 item 8)")
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+        "pos": 0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def embed_lookup(cfg: ArchConfig, table: torch.Tensor, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    """Embedding lookup. The reference's ``embed_impl="onehot"`` is a bf16
+    one-hot matmul, which reproduces the table row exactly; an index lookup
+    gives the same bits for either setting."""
+    return table.to(torch.bfloat16)[tokens.long()]
+
+
+def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
+            positions: torch.Tensor | None = None,
+            vision_embeds: torch.Tensor | None = None,
+            mrope_positions: torch.Tensor | None = None,
+            cache: dict | None = None) -> LMOut:
+    """Token forward. tokens: (B, S) integer.
+
+    With ``cache``: writes K/V at ``cache['pos']`` (in place) and returns the
+    cache with ``pos`` advanced — S == 1 is the decode step, S > 1 prefill.
+    """
+    _require_dense(cfg)
+    if vision_embeds is not None or mrope_positions is not None:
+        raise NotImplementedError(
+            "vision inputs come with the vlm family (ROADMAP queue 1 item 8)")
+    b, s = tokens.shape
+    h = embed_lookup(cfg, params["embed"], tokens)
+    base = cache["pos"] if cache is not None else 0
+    if positions is None:
+        positions = torch.arange(base, base + s, dtype=torch.int32,
+                                 device=tokens.device).expand(b, s)
+
+    h, new_cache = _attn_stack(cfg, params, h, positions, cache)
+
+    h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    head = (params["embed"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
+    if new_cache is not None:
+        new_cache["pos"] = base + s
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    return LMOut(logits=logits, cache=new_cache, aux_loss=aux)
+
+
+# --- homogeneous attention stack (dense) --------------------------------------
+def _attn_stack(cfg, params, h, positions, cache):
+    blocks = params["blocks"]
+    has_cache = cache is not None
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], blocks)
+        window = cfg.layer_window(i)
+        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        attn_out, _ = layers.attn_block(
+            cfg, p["attn"], x, positions,
+            window=window if window is not None else layers.GLOBAL_WINDOW,
+            kv_cache=(cache["k"][i], cache["v"][i]) if has_cache else None,
+            cache_pos=cache["pos"] if has_cache else None)
+        h = h + attn_out
+        if cfg.d_ff:
+            x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+            h = h + layers.mlp_block(p["mlp"], x)
+    new_cache = None
+    if has_cache:
+        new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
+    return h, new_cache

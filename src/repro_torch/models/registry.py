@@ -1,0 +1,27 @@
+"""Family dispatch (twin of the JAX package's ``models/registry.py``).
+
+Only ``lm.py`` is ported; it raises for the enc-dec (audio) family, which
+comes with ROADMAP queue 1 item 8.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from . import lm
+from .config import ArchConfig
+
+
+def param_defs(cfg: ArchConfig) -> Any:
+    return lm.param_defs(cfg)
+
+
+def init(cfg: ArchConfig, generator: torch.Generator,
+         device: torch.device | str) -> Any:
+    return lm.init(cfg, generator, device)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device: torch.device | str) -> Any:
+    return lm.init_cache(cfg, batch, max_len, device)

@@ -1,0 +1,138 @@
+"""The port's serve entry point vs the JAX package's serve loop, the
+device rule, and the import boundary of ``repro_torch``."""
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro import configs as jconfigs
+from repro.data import synth as jsynth
+from repro.models import registry as jregistry
+from repro.train import steps as jsteps
+from repro_torch import configs as tconfigs
+from repro_torch.data import synth as tsynth
+from repro_torch.launch import serve
+from repro_torch.models import convert
+
+REL_TOL = 3e-2     # as tests/test_torch_model.py: bf16 in both packages
+SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+
+
+def _reference_serve(cfg, params, prompts, gen_tokens):
+    """The greedy loop of the JAX package's ``launch/serve.py:main``:
+    returns the tokens and each step's logits."""
+    max_len = prompts.shape[1] + gen_tokens
+    prefill = jax.jit(lambda p, b: jsteps.prefill_step(cfg, p, b,
+                                                      max_len=max_len))
+    decode = jax.jit(lambda p, t, c: jsteps.decode_step(cfg, p, t, c),
+                     donate_argnums=(2,))
+    logits, cache = prefill(params, {"tokens": jnp.asarray(prompts)})
+    out, all_logits = [jnp.argmax(logits, -1)[:, None]], [logits]
+    for _ in range(gen_tokens - 1):
+        logits, cache = decode(params, out[-1].astype(jnp.int32), cache)
+        out.append(jnp.argmax(logits, -1)[:, None].astype(jnp.int32))
+        all_logits.append(logits)
+    return (np.asarray(jnp.concatenate(out, 1)),
+            np.stack([np.asarray(x, np.float32) for x in all_logits], 1))
+
+
+def test_lm_tokens_match_reference():
+    assert np.array_equal(tsynth.lm_tokens(3, 1000, 512),
+                          jsynth.lm_tokens(3, 1000, 512))
+
+
+def test_serve_run_on_cpu_gives_the_reference_tokens():
+    """Per sequence, tokens agree up to the first step where the reference's
+    top-1/top-2 gap is within the tolerance (there bf16 rounding may pick
+    the other token, and the two continuations part)."""
+    jcfg = jconfigs.reduced(jconfigs.get("internlm2-1.8b"))
+    tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get("internlm2-1.8b")),
+                               attn_impl="flash")
+    b, s, gen = 4, 32, 12
+    prompts = tsynth.lm_tokens(0, b * s + 1, jcfg.vocab_size)[:b * s].reshape(b, s)
+    jparams = jregistry.init(jcfg, jax.random.PRNGKey(0))
+    tparams = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+
+    ref_tokens, ref_logits = _reference_serve(jcfg, jparams, prompts, gen)
+    res = serve.run(tcfg, tparams, prompts, gen, device="cpu")
+    assert res.tokens.shape == (b, gen) and res.tokens.dtype == torch.int32
+    assert res.prefill_s > 0 and res.decode_s > 0
+    out = res.tokens.numpy()
+
+    top2 = np.sort(ref_logits, -1)[..., -2:]
+    margin = (top2[..., 1] - top2[..., 0]) / np.abs(ref_logits).max(-1)
+    checked = 0
+    for row in range(b):
+        for step in range(gen):
+            if margin[row, step] <= REL_TOL:
+                break
+            assert out[row, step] == ref_tokens[row, step], (row, step)
+            checked += 1
+    assert checked >= b        # at least one clear step per row on average
+    first = ref_logits[:, 0]
+    err = np.abs(first - res.prefill_logits.float().numpy()).max()
+    assert err / np.abs(first).max() < REL_TOL
+
+
+def test_serve_entry_points_refuse_to_fall_back_to_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("the rule under test is for machines without a card")
+    cfg = tconfigs.reduced(tconfigs.get("internlm2-1.8b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run(cfg, {}, np.zeros((1, 4), np.int32), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--gen-tokens", "2"])
+
+
+def test_serve_cli_runs_reduced_on_cpu(capsys):
+    serve.main(["--device", "cpu", "--batch", "2", "--prompt-len", "8",
+                "--gen-tokens", "3"])
+    out = capsys.readouterr().out
+    assert "arch=internlm2-1.8b-smoke" in out and "attn_impl=flash" in out
+    assert "first sequence:" in out
+
+
+MODULES = [
+    "repro_torch", "repro_torch.device", "repro_torch.configs",
+    "repro_torch.data.synth", "repro_torch.models", "repro_torch.models.config",
+    "repro_torch.models.params", "repro_torch.models.convert",
+    "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.models.registry", "repro_torch.train.steps",
+    "repro_torch.launch.serve", "repro_torch.launch.profile_serve",
+    "repro_torch.kernels._build",
+    "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref",
+    "repro_torch.kernels.flash_attention.ops",
+    "repro_torch.kernels.flash_attention.ref",
+]
+
+
+def test_port_imports_no_jax_ml_dtypes_or_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("clean")
+
+
+def test_profile_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the rule under test is for machines without a card")
+    from repro_torch.launch import profile_serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_serve.main([])
