@@ -8,14 +8,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
   2. build every CUDA kernel from the repo's sources (one nvcc per source,
      all at once) and print the build seconds and ptxas's report;
   3. hold each kernel against its plain PyTorch version on the card, at
-     the test shapes and at the serving path's shapes; time the kernel, the
-     plain version and one PyTorch library call computing the same function
-     (a yardstick the port never calls), each with a cold L2;
+     the test shapes and at the serving paths' shapes; time the kernel, the
+     plain version and, where one exists, one PyTorch library call
+     computing the same function (a yardstick the port never calls), each
+     with a cold L2;
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
      launches of that run; hold its logits against the same prompts run
      through the plain path (every kernel replaced by its plain version);
+  4b. the same for mamba2-130m (the ssm family: the SSD chunk kernel in
+     prefill, RMSNorm in every forward), with its own counts and plain path;
   5. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -42,8 +45,13 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100 NVL": (3.9e12, 835e12, 60e12),
          "H100": (3.35e12, 989e12, 67e12)}          # SXM (80GB HBM3)
 ARCH, BATCH, PROMPT, GEN, SEED = "internlm2-1.8b", 4, 512, 32, 0
+SSM_ARCH = "mamba2-130m"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 2e-2
+# The SSD kernel computes in fp32 from either input type; the reference's
+# own tolerance (tests/test_kernels.py), relative to max |y| and to
+# max(max |h|, 1), holds it for both.
+SSD_TOL = 1e-4
 # The serving run vs the plain path, max |diff| / max |logit|: 24 layers
 # with a bf16 residual stream (48 bf16 adds) turn one-ulp rounding
 # differences into ~3% on the logits; two plain paths that differ only in
@@ -101,8 +109,12 @@ def check_rmsnorm(dev, timer, peaks):
     from repro_torch.kernels.rmsnorm import ops, ref
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {}
+    # test shapes, then what each serving path gives the kernel: internlm2
+    # (D 2048), mamba2's ln1/final norm (D 768) and its gated norm (D 1536)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8),
-              (BATCH * PROMPT, 2048), (BATCH, 1, 2048)]
+              (BATCH * PROMPT, 2048), (BATCH, 1, 2048),
+              (BATCH * PROMPT, 768), (BATCH, 1, 768),
+              (BATCH * PROMPT, 1536), (BATCH, 1, 1536)]
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -190,6 +202,95 @@ def check_flash(dev, timer, peaks):
     return out
 
 
+def check_ssd(dev, timer, peaks):
+    from repro_torch.kernels.ssd import ops, ref
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def inputs(b, s, h, p, n):
+        """As the model makes them: dt = softplus(N(0, 0.55²)) and a = -e
+        (the init's a_log = 1), so a 128-long chunk decays to cs ~ -240 and
+        exp(cs_i - cs_j) overflows fp32 for j > i."""
+        x = torch.randn(b, s, h, p, generator=g, device=dev)
+        dt = F.softplus(0.55 * torch.randn(b, s, h, generator=g, device=dev))
+        a = torch.full((h,), -2.718281828, device=dev)
+        bm, cm = (0.5 * torch.randn(b, s, n, generator=g, device=dev)
+                  for _ in range(2))
+        return x, dt, a, bm, cm
+
+    def cumsum(dt, a, chunk):
+        b, s, h = dt.shape
+        return torch.cumsum((dt * a).reshape(b, s // chunk, chunk, h),
+                            2).reshape(b, s, h)
+
+    def close(got, want):
+        (y, h), (y_exp, h_exp) = got, want
+        ey, eh = max_err(y, y_exp), max_err(h, h_exp)
+        ok = (ey <= SSD_TOL * float(y_exp.abs().max())
+              and eh <= SSD_TOL * max(float(h_exp.abs().max()), 1.0))
+        return ok, ey, eh
+
+    serving = (BATCH, PROMPT, 24, 64, 128, 128)
+    cases = [  # b, S, H, P, N, chunk
+        (2, 64, 3, 16, 32, 16), (1, 128, 4, 32, 16, 32),
+        (2, 48, 2, 16, 8, 16), (1, 96, 8, 8, 8, 32),     # tests/test_kernels.py
+        (2, 16, 16, 16, 16, 8),                          # reduced mamba2
+        serving,
+    ]
+    for case in cases:
+        b, s, h, p, n, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, cm = inputs(b, s, h, p, n)
+            x, bm, cm = x.to(dtype), bm.to(dtype), cm.to(dtype)
+            cs = cumsum(dt, a, chunk)
+            ok, ey, eh = close(ops.ssd_chunk(x, dt, cs, bm, cm, chunk=chunk),
+                               ref.ssd_chunk_ref(x, dt, cs, bm, cm, chunk=chunk))
+            torch.cuda.synchronize()
+            print(f"ssd_chunk {case} {dtype}: max_abs_err y {ey:.3g}, "
+                  f"states {eh:.3g}")
+            require(ok, (case, dtype, ey, eh))
+    # the whole wrapper (pad, cumsum, kernel, inter-chunk scan) vs the
+    # sequential oracle: a ragged S at the serving widths, from zero and
+    # from a non-zero initial state
+    for with_h0 in (False, True):
+        x, dt, a, bm, cm = inputs(BATCH, 500, 24, 64, 128)
+        x, bm, cm = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+        h0 = (torch.randn(BATCH, 24, 64, 128, generator=g, device=dev)
+              if with_h0 else None)
+        ok, ey, eh = close(ops.ssd(x, dt, a, bm, cm, chunk=128, h0=h0),
+                           ref.ssd_ref(x, dt, a, bm, cm, h0=h0))
+        torch.cuda.synchronize()
+        print(f"ssd S=500 h0={'random' if with_h0 else 'zero'} vs ssd_ref: "
+              f"max_abs_err y {ey:.3g}, h {eh:.3g}")
+        require(ok, ("ssd vs ssd_ref", with_h0, ey, eh))
+
+    # the serving shape, bf16, timed
+    b, s, h, p, n, chunk = serving
+    x, dt, a, bm, cm = inputs(b, s, h, p, n)
+    x, bm, cm = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
+    cs = cumsum(dt, a, chunk)
+    y, st = ops.ssd_chunk(x, dt, cs, bm, cm, chunk=chunk)
+    err = max_err(y, ref.ssd_chunk_ref(x, dt, cs, bm, cm, chunk=chunk)[0])
+    nc = s // chunk
+    # least work: the causal half (j <= i) of C Bᵀ and of W X, and B^T X
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * b * nc * h * (tri * n + tri * p + chunk * n * p)
+    nbytes = (x.numel() * 2 + 2 * dt.numel() * 4 + 2 * bm.numel() * 2
+              + y.numel() * 4 + st.numel() * 4)
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    out = {"ms": timer(lambda: ops.ssd_chunk(x, dt, cs, bm, cm, chunk=chunk)),
+           "plain_ms": timer(lambda: ref.ssd_chunk_ref(x, dt, cs, bm, cm,
+                                                       chunk=chunk)),
+           # no single PyTorch call computes this function
+           "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    print(f"ssd_chunk {serving} bf16: " + json.dumps(out)
+          + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; at the fp32 "
+          f"non-tensor peak the products alone take {flops / peaks[2] * 1e3:.4f} ms)")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def plain_last_logits(cfg, params, tokens, attn_impl="chunked"):
     """The dense forward with every kernel replaced by plain torch:
@@ -212,15 +313,62 @@ def plain_last_logits(cfg, params, tokens, attn_impl="chunked"):
     return h @ params["lm_head"]
 
 
-def serve_full(dev):
-    from repro_torch import configs
-    from repro_torch.data import synth
+def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
+    """The mamba2 forward with every kernel replaced by plain torch:
+    ``rmsnorm_ref`` for every norm (the gated one inside the mixer too), and
+    the reference model's chunked ``ssd_scan_reference`` or the sequential
+    oracle ``ssd_ref``; last-position logits through the tied head."""
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    from repro_torch.models import lm, ssd
+    from repro_torch.models.params import tree_map
+    scfg = cfg.ssm
+    h = lm.embed_lookup(cfg, params["embed"], tokens)
+    b, s, _ = h.shape
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], params["blocks"])
+        x = rmsnorm_ref(h, p["ln1"], cfg.norm_eps)
+        m = p["ssm"]
+        z, xbc, dt_raw, d_in, ns, nh = ssd._split_proj(
+            scfg, cfg.d_model, x @ m["in_proj"])
+        a = -torch.exp(m["a_log"])
+        dt = F.softplus(dt_raw.float() + m["dt_bias"])
+        conv, _ = ssd._causal_conv(xbc, m["conv_w"], m["conv_b"])
+        xs, bm, cm = torch.split(conv, [d_in, ns, ns], dim=-1)
+        xh = xs.reshape(b, s, nh, scfg.head_dim)
+        if scan == "chunked":
+            y, _ = ssd.ssd_scan_reference(xh, dt, a, bm, cm, scfg.chunk)
+        else:
+            y, _ = ssd_ref(xh, dt, a, bm, cm)
+        y = y + (xh.float() * m["d_skip"][None, None, :, None]).to(y.dtype)
+        y = rmsnorm_ref(y.reshape(b, s, d_in) * F.silu(z.float()).to(y.dtype),
+                        m["norm_w"])
+        h = h + (y.to(x.dtype) @ m["out_proj"]).to(x.dtype)
+    h = rmsnorm_ref(h[:, -1], params["final_norm"], cfg.norm_eps)
+    return h @ params["embed"].T
+
+
+def launch_counters():
+    """{kernel name: its wrapper}; each wrapper's ``launches`` counts the
+    kernel launches since it was last set to 0."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    return {"rmsnorm": rn_ops.rmsnorm,
+            "flash_attention": fa_ops.flash_attention, "ssd": ssd_ops.ssd}
+
+
+def serve_path(dev, cfg, plain, alt, expect):
+    """Serve ``cfg`` at full width through ``serve.run``: a warm-up, then
+    the main path with every launch count set to 0 just before it and read
+    just after. Requires the counts ``expect``; holds the prefill and last
+    decode logits against ``plain(cfg, params, tokens)`` and prints beside
+    them the noise floor to ``plain(cfg, params, tokens, alt)``, a plain
+    path that differs only in rounding."""
+    from repro_torch.data import synth
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
-    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
     t0 = time.perf_counter()
     params = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     n_params = sum(t.numel() for t in _leaves(params))
@@ -232,20 +380,18 @@ def serve_full(dev):
 
     serve.run(cfg, params, prompts, 2)            # warm-up: cuBLAS, libraries
     torch.cuda.reset_peak_memory_stats(dev)
-    fa_ops.flash_attention.launches = 0
-    rn_ops.rmsnorm.launches = 0
+    counters = launch_counters()
+    for wrapper in counters.values():
+        wrapper.launches = 0
     res = serve.run(cfg, params, prompts, GEN)    # the main path
-    launches = {"flash_attention": fa_ops.flash_attention.launches,
-                "rmsnorm": rn_ops.rmsnorm.launches}
+    launches = {name: wrapper.launches for name, wrapper in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tok_s = BATCH * (GEN - 1) / res.decode_s
-    print(f"serve: prefill {res.prefill_s * 1e3:.2f} ms; decode "
+    print(f"serve {cfg.name}: prefill {res.prefill_s * 1e3:.2f} ms; decode "
           f"{res.decode_s * 1e3:.2f} ms for {GEN - 1} steps ({tok_s:.1f} tok/s); "
           f"peak memory {peak_gb:.2f} GB; launches {launches}")
 
-    forwards = GEN                                # one prefill + GEN-1 decodes
-    require(launches["flash_attention"] == cfg.num_layers, launches)
-    require(launches["rmsnorm"] == (2 * cfg.num_layers + 1) * forwards, launches)
+    require(launches == expect, (cfg.name, launches, expect))
     require(tuple(res.tokens.shape) == (BATCH, GEN), res.tokens.shape)
     require(0 <= int(res.tokens.min()) and int(res.tokens.max()) < cfg.vocab_size,
             "tokens out of the vocabulary")
@@ -255,20 +401,40 @@ def serve_full(dev):
 
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
-        plain_prefill = plain_last_logits(cfg, params, tokens)
+        plain_prefill = plain(cfg, params, tokens)
         seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
-        plain_last = plain_last_logits(cfg, params, seq)
-        floor = {"prefill": rel_err(plain_prefill, plain_last_logits(
-                     cfg, params, tokens, "reference")),
-                 "last_decode": rel_err(plain_last, plain_last_logits(
-                     cfg, params, seq, "reference"))}
+        plain_last = plain(cfg, params, seq)
+        floor = {"prefill": rel_err(plain_prefill, plain(cfg, params, tokens, alt)),
+                 "last_decode": rel_err(plain_last, plain(cfg, params, seq, alt))}
     errs = {"prefill": rel_err(plain_prefill, res.prefill_logits),
             "last_decode": rel_err(plain_last, res.last_logits)}
-    print(f"serve vs plain path (max |diff| / max |logit|): {errs}; "
+    print(f"serve {cfg.name} vs plain path (max |diff| / max |logit|): {errs}; "
           f"noise floor between two plain paths: {floor}; "
           f"first sequence {res.tokens[0][:16].tolist()}")
     require(all(e < LOGITS_REL_TOL for e in errs.values()), errs)
     return launches
+
+
+def serve_full(dev):
+    """internlm2-1.8b: flash in each layer of prefill, 2 norms a layer and
+    the final norm in every forward (one prefill + GEN-1 decodes)."""
+    from repro_torch import configs
+    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
+    return serve_path(dev, cfg, plain_last_logits, "reference", {
+        "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
+        "flash_attention": cfg.num_layers, "ssd": 0})
+
+
+def serve_ssm(dev):
+    """mamba2-130m: the SSD chunk kernel in each layer of prefill; ln1 and
+    the mixer's gated norm in each layer and the final norm in every
+    forward. Decode is the recurrence in plain torch (no kernel there, as
+    in the reference)."""
+    from repro_torch import configs
+    cfg = configs.get(SSM_ARCH)
+    return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
+        "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
+        "flash_attention": 0, "ssd": cfg.num_layers})
 
 
 def _leaves(tree):
@@ -309,9 +475,10 @@ def main() -> int:
 
     timer = ColdTimer(dev)
     rows = {"rmsnorm": check_rmsnorm(dev, timer, peaks),
-            "flash_attention": check_flash(dev, timer, peaks)}
+            "flash_attention": check_flash(dev, timer, peaks),
+            "ssd": check_ssd(dev, timer, peaks)}
     del timer
-    launches = serve_full(dev)
+    by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
@@ -319,9 +486,15 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:109"),
+        "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu",
+                "src/repro/kernels/ssd/ssd.py:76"),
     }
+    # launches: the sum over the main paths; each path's count beside it
     kernels = [{"name": k, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[k], **rows[k]}
+                "replaces": replaces,
+                "launches": sum(n[k] for n in by_path.values()),
+                "launches_by_path": {a: n[k] for a, n in by_path.items()},
+                **rows[k]}
                for k, (source, replaces) in meta.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,138 @@
+"""SSD wrapper: the CUDA chunk kernel on CUDA tensors, the plain version on
+CPU tensors, and the inter-chunk scan in plain torch.
+
+Twin of the JAX package's ``kernels/ssd/ops.py``: ``ssd`` pads S to a
+multiple of the chunk, takes the within-chunk cumsum of dt·a, runs the
+intra-chunk kernel (``ssd_chunk``, the twin of ``ssd_chunk_pallas``), then
+scans the chunk boundary states and adds the inter-chunk output. There is
+no off-shape fallback: on a CUDA tensor ``ssd_chunk`` launches the kernel
+or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from .. import _build
+from .ref import ssd_chunk_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+MAX_DIM = 128     # L, N and P each at most this, and a multiple of 4
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    lib.ssd_chunk_fwd.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.ssd_chunk_fwd.restype = ctypes.c_int
+    return lib
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, *, chunk: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Intra-chunk SSD.
+
+    x: (b,S,H,P); dt, cs: (b,S,H) fp32; B, C: (b,S,N); S % chunk == 0.
+    Returns (y_intra (b,S,H,P) fp32, states (b,nc,H,N,P) fp32).
+    """
+    if x.device.type == "cpu":
+        return ssd_chunk_ref(x, dt, cs, B, C, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_chunk: unsupported device {x.device}")
+    bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    L = chunk
+    tensors = (x, dt, cs, B, C)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("ssd_chunk: x, dt, cs, B, C on different devices")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd_chunk: x/B/C dtypes {x.dtype}/{B.dtype}/"
+                         f"{C.dtype}; want one of {list(_DTYPES)}, all alike")
+    if dt.dtype != torch.float32 or cs.dtype != torch.float32:
+        raise ValueError(f"ssd_chunk: dt/cs must be fp32, got {dt.dtype}/"
+                         f"{cs.dtype}")
+    if (dt.shape != (bsz, S, H) or cs.shape != dt.shape
+            or B.shape != (bsz, S, N) or C.shape != B.shape):
+        raise ValueError(f"ssd_chunk: shapes x{tuple(x.shape)} dt"
+                         f"{tuple(dt.shape)} cs{tuple(cs.shape)} "
+                         f"B{tuple(B.shape)} C{tuple(C.shape)}")
+    if L <= 0 or S % L:
+        raise ValueError(f"ssd_chunk: S={S} is not a multiple of the chunk {L}")
+    for name, v in (("chunk", L), ("d_state", N), ("head_dim", P)):
+        if v % 4 or not 4 <= v <= MAX_DIM:
+            raise ValueError(f"ssd_chunk: {name}={v} is not a multiple of 4 "
+                             f"in [4, {MAX_DIM}]")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd_chunk: x, dt, cs, B, C must be contiguous")
+
+    y = torch.empty((bsz, S, H, P), dtype=torch.float32, device=x.device)
+    states = torch.empty((bsz, S // L, H, N, P), dtype=torch.float32,
+                         device=x.device)
+    if y.numel() == 0:
+        return y, states
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.ssd_chunk_fwd(
+        x.data_ptr(), dt.data_ptr(), cs.data_ptr(), B.data_ptr(),
+        C.data_ptr(), y.data_ptr(), states.data_ptr(), bsz, S, H, P, N, L,
+        _DTYPES[x.dtype], stream)
+    _build.check(lib, code, "ssd_chunk_fwd")
+    ssd.launches += 1
+    return y, states
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, *, chunk: int = 128, h0: torch.Tensor | None = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full SSD with the quadratic part in the chunk kernel.
+
+    x: (b,S,H,P); dt: (b,S,H) fp32 (post-softplus); a: (H,) fp32 (negative);
+    B, C: (b,S,N); h0: optional (b,H,P,N) initial state.
+    Returns (y (b,S,H,P) fp32, h_final (b,H,P,N) fp32).
+    """
+    bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    L = chunk
+    if any(t is not None and t.device != x.device for t in (a, h0)):
+        raise ValueError("ssd: a and h0 must lie on x's device")
+    S_orig = S
+    if S % L:
+        # dt = 0 on the pad: no decay (exp(0) = 1) and no state update
+        pad = L - S % L
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        S += pad
+    nc = S // L
+
+    cs = torch.cumsum((dt * a).reshape(bsz, nc, L, H), dim=2)     # within-chunk
+    y_intra, states = ssd_chunk(x, dt, cs.reshape(bsz, S, H), B, C, chunk=L)
+
+    # inter-chunk scan over boundary states, (b,nc,H,N,P) → (b,nc,H,P,N)
+    seg = torch.exp(cs[:, :, -1, :])                              # (b,nc,H)
+    states = states.transpose(-1, -2)
+    h = (torch.zeros((bsz, H, P, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    h_prev = []
+    for c in range(nc):
+        h_prev.append(h)
+        h = h * seg[:, c, :, None, None] + states[:, c]
+    h_prev = torch.stack(h_prev, 1)                               # (b,nc,H,P,N)
+
+    # inter-chunk output: y_inter[t] = exp(cs_t) · C_t · h_prev(chunk(t))
+    Cc = C.reshape(bsz, nc, L, N).float()
+    y_inter = torch.einsum("bcln,bchpn->bclhp", Cc, h_prev) \
+        * torch.exp(cs)[..., None]
+    y = y_intra + y_inter.reshape(bsz, S, H, P)
+    return y[:, :S_orig], h
+
+
+ssd.launches = 0   # chunk-kernel launches (in ssd_chunk) since last set to 0

@@ -2,6 +2,7 @@
 ``serve.run`` at full width.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch mamba2-130m
 
 After a warm-up run, one run without the profiler gives the wall times;
 then a prefill-only run (one generated token) and a full run (prefill plus

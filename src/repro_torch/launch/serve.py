@@ -3,10 +3,13 @@
 Twin of the JAX package's ``launch/serve.py``, with two more flags:
 ``--device`` (default ``cuda``; asking for it without a card raises) and
 ``--attn-impl`` (default ``flash``, so prefill goes through the
-FlashAttention kernel). ``run`` is the library entry point; ``main`` and
-``chip_smoke.py`` both call it.
+FlashAttention kernel; the ssm family has no attention and ignores it).
+``run`` is the library entry point; ``main`` and ``chip_smoke.py`` both
+call it. It serves the dense family and the ssm family (mamba2-130m, whose
+prefill goes through the SSD chunk kernel).
 
     python -m repro_torch.launch.serve --full          # on the card
+    python -m repro_torch.launch.serve --arch mamba2-130m --full
     python -m repro_torch.launch.serve --device cpu    # reduced, on the CPU
 """
 from __future__ import annotations

@@ -1,9 +1,14 @@
-"""Decoder-only LM, dense family (twin of the JAX package's ``models/lm.py``).
+"""Decoder-only LM, dense and ssm families (twin of the JAX package's
+``models/lm.py``).
 
 The reference scans stacked ``blocks`` with ``jax.lax.scan``; here a Python
-loop walks the layer index over the same stacked tensors. The KV cache is
-one stacked (layers, B, S_max, KV, D) tensor per K and V, written in place
-layer by layer (the reference's serve loop donates its cache instead).
+loop walks the layer index over the same stacked tensors. The caches are
+stacked tensors written in place layer by layer (the reference's serve loop
+donates its cache instead): for the dense family one (layers, B, S_max, KV,
+D) tensor per K and V, for the ssm family the conv state (layers, B, K-1,
+C) and the SSM state (layers, B, H, P, N). The ssm stack runs its blocks
+with ``use_kernel=True``, so prefill goes through the SSD chunk kernel
+(the reference's stack leaves it off).
 
 The other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -13,7 +18,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from . import layers
+from . import layers, ssd as ssd_lib
 from .config import ArchConfig
 from .params import P, init_params, tree_map
 
@@ -24,24 +29,31 @@ class LMOut(NamedTuple):
     aux_loss: torch.Tensor
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
-        item = 1 if cfg.family == "ssm" else 8
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP queue 1 item {item})")
+            "(ROADMAP queue 1 item 8)")
 
 
 # ---------------------------------------------------------------------------
 # parameter definitions
 # ---------------------------------------------------------------------------
-def _attn_layer_defs(cfg: ArchConfig) -> dict:
-    d = {"ln1": layers.rmsnorm_defs(cfg.d_model),
-         "attn": layers.attention_defs(cfg)}
+def _ffn_defs(cfg: ArchConfig) -> dict:
     if cfg.d_ff:
-        d["ln2"] = layers.rmsnorm_defs(cfg.d_model)
-        d["mlp"] = layers.mlp_defs(cfg.d_model, cfg.d_ff)
-    return d
+        return {"ln2": layers.rmsnorm_defs(cfg.d_model),
+                "mlp": layers.mlp_defs(cfg.d_model, cfg.d_ff)}
+    return {}
+
+
+def _attn_layer_defs(cfg: ArchConfig) -> dict:
+    return {"ln1": layers.rmsnorm_defs(cfg.d_model),
+            "attn": layers.attention_defs(cfg), **_ffn_defs(cfg)}
+
+
+def _ssm_layer_defs(cfg: ArchConfig) -> dict:
+    return {"ln1": layers.rmsnorm_defs(cfg.d_model),
+            "ssm": ssd_lib.ssm_defs(cfg.d_model, cfg.ssm), **_ffn_defs(cfg)}
 
 
 def _stack(defs: Any, n: int) -> Any:
@@ -51,12 +63,13 @@ def _stack(defs: Any, n: int) -> Any:
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _require_dense(cfg)
+    _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
+    layer = _ssm_layer_defs if cfg.family == "ssm" else _attn_layer_defs
     defs: dict = {
         "embed": P((v, d), ("vocab", "embed")),
         "final_norm": layers.rmsnorm_defs(d),
-        "blocks": _stack(_attn_layer_defs(cfg), cfg.num_layers),
+        "blocks": _stack(layer(cfg), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = P((d, v), ("embed", "vocab"))
@@ -73,8 +86,16 @@ def init(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str) -> dict:
-    """Dense KV cache; ``pos`` (the next write offset) is a host int."""
-    _require_dense(cfg)
+    """Dense KV cache, or the ssm family's conv and SSM states; ``pos``
+    (the next write offset) is a host int."""
+    _require_ported(cfg)
+    if cfg.family == "ssm":
+        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
+        return {
+            "conv": conv.new_zeros((cfg.num_layers,) + conv.shape),
+            "h": h.new_zeros((cfg.num_layers,) + h.shape),
+            "pos": 0,
+        }
     if cfg.window_cache and cfg.window is not None and cfg.global_every:
         raise NotImplementedError(
             f"{cfg.name}: ring KV caches come with the windowed family "
@@ -106,10 +127,11 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             cache: dict | None = None) -> LMOut:
     """Token forward. tokens: (B, S) integer.
 
-    With ``cache``: writes K/V at ``cache['pos']`` (in place) and returns the
-    cache with ``pos`` advanced — S == 1 is the decode step, S > 1 prefill.
+    With ``cache``: writes K/V (or the SSM states) at ``cache['pos']`` (in
+    place) and returns the cache with ``pos`` advanced — S == 1 is the
+    decode step, S > 1 prefill.
     """
-    _require_dense(cfg)
+    _require_ported(cfg)
     if vision_embeds is not None or mrope_positions is not None:
         raise NotImplementedError(
             "vision inputs come with the vlm family (ROADMAP queue 1 item 8)")
@@ -120,7 +142,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         positions = torch.arange(base, base + s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
 
-    h, new_cache = _attn_stack(cfg, params, h, positions, cache)
+    stack = _ssm_stack if cfg.family == "ssm" else _attn_stack
+    h, new_cache = stack(cfg, params, h, positions, cache)
 
     h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
@@ -152,4 +175,27 @@ def _attn_stack(cfg, params, h, positions, cache):
     new_cache = None
     if has_cache:
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
+    return h, new_cache
+
+
+# --- ssm stack (mamba2) ---------------------------------------------------------
+def _ssm_stack(cfg, params, h, positions, cache):
+    blocks = params["blocks"]
+    has_cache = cache is not None
+    for i in range(cfg.num_layers):
+        p = tree_map(lambda t: t[i], blocks)
+        state = (cache["conv"][i], cache["h"][i]) if has_cache else None
+        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        out, (conv, hst) = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,
+                                             use_kernel=True)
+        h = h + out
+        if cfg.d_ff:
+            x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+            h = h + layers.mlp_block(p["mlp"], x)
+        if has_cache:
+            cache["conv"][i].copy_(conv)
+            cache["h"][i].copy_(hst)
+    new_cache = None
+    if has_cache:
+        new_cache = {"conv": cache["conv"], "h": cache["h"], "pos": cache["pos"]}
     return h, new_cache

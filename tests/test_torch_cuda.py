@@ -8,12 +8,15 @@ runs where JAX is not installed:
 
 Tolerances are those of ``tests/test_kernels.py``: fp32 differs only in
 summation order; a bf16 output may round one ulp apart (2^-8 relative).
+The SSD kernel computes in fp32 from either input type, so it is held at
+the reference's 1e-4·max|y| and 1e-4·max(max|h|, 1) for both.
 """
 import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as tfa_ops, ref as tfa_ref
 from repro_torch.kernels.rmsnorm import ops as trn_ops, ref as trn_ref
+from repro_torch.kernels.ssd import ops as tssd_ops, ref as tssd_ref
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 RMSNORM_TOL = 2e-2
@@ -98,3 +101,88 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.ones(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tfa_ops.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+
+
+SSD_CUDA_CASES = [
+    # b, S, H, P, N, chunk: tests/test_kernels.py's cases, the reduced
+    # mamba2 config, jamba's SSMCfg, then the mamba2-130m serving shape
+    (2, 64, 3, 16, 32, 16),
+    (1, 128, 4, 32, 16, 32),
+    (2, 48, 2, 16, 8, 16),
+    (1, 96, 8, 8, 8, 32),
+    (2, 16, 16, 16, 16, 8),
+    (1, 256, 4, 64, 16, 128),
+    (4, 512, 24, 64, 128, 128),
+]
+
+
+def _ssd_inputs(case, dtype, g, dev):
+    """x, dt, a, B, C as the model makes them: dt = softplus(N(0, 0.55²)),
+    a = -e (the reference init's a_log = 1), so a 128-long chunk decays
+    to cs ~ -240 and exp(cs_i - cs_j) overflows for j > i."""
+    b, S, H, P, N, _ = case
+    dt_ = getattr(torch, dtype)
+    x = torch.randn(b, S, H, P, generator=g, device=dev).to(dt_)
+    dt = torch.nn.functional.softplus(
+        0.55 * torch.randn(b, S, H, generator=g, device=dev))
+    a = torch.full((H,), -2.718281828, device=dev)
+    Bm = (0.5 * torch.randn(b, S, N, generator=g, device=dev)).to(dt_)
+    Cm = (0.5 * torch.randn(b, S, N, generator=g, device=dev)).to(dt_)
+    return x, dt, a, Bm, Cm
+
+
+def _assert_ssd_close(y, h, y_exp, h_exp):
+    y_exp, h_exp = y_exp.float(), h_exp.float()
+    torch.testing.assert_close(y, y_exp, rtol=0,
+                               atol=1e-4 * float(y_exp.abs().max()))
+    torch.testing.assert_close(h, h_exp, rtol=0,
+                               atol=1e-4 * max(float(h_exp.abs().max()), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CUDA_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    b, S, H, P, N, L = case
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x, dt, a, Bm, Cm = _ssd_inputs(case, dtype, g, cuda)
+    cs = torch.cumsum((dt * a).reshape(b, S // L, L, H), 2).reshape(b, S, H)
+    before = tssd_ops.ssd.launches
+    y, st = tssd_ops.ssd_chunk(x, dt, cs, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert tssd_ops.ssd.launches == before + 1
+    assert y.dtype == st.dtype == torch.float32
+    assert st.shape == (b, S // L, H, N, P)
+    _assert_ssd_close(y, st, *tssd_ref.ssd_chunk_ref(x, dt, cs, Bm, Cm, chunk=L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_wrapper_matches_sequential_oracle_ragged_with_h0(cuda, dtype):
+    """S = 500 at the serving widths (the pad path), from a non-zero h0."""
+    case = (2, 500, 24, 64, 128, 128)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x, dt, a, Bm, Cm = _ssd_inputs(case, dtype, g, cuda)
+    h0 = torch.randn(2, 24, 64, 128, generator=g, device=cuda)
+    y, h = tssd_ops.ssd(x, dt, a, Bm, Cm, chunk=128, h0=h0)
+    torch.cuda.synchronize()
+    _assert_ssd_close(y, h, *tssd_ref.ssd_ref(x, dt, a, Bm, Cm, h0=h0))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, a, Bm, Cm = _ssd_inputs((1, 32, 2, 16, 16, 16), "float32",
+                                   torch.Generator(device=cuda).manual_seed(2),
+                                   cuda)
+    cs = torch.cumsum(dt * a, 1)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        tssd_ops.ssd_chunk(x, dt, cs, Bm, Cm, chunk=12)
+    with pytest.raises(ValueError, match="contiguous"):
+        tssd_ops.ssd_chunk(x.transpose(2, 3).contiguous().transpose(2, 3),
+                           dt, cs, Bm, Cm, chunk=16)
+    with pytest.raises(ValueError, match="dtype"):
+        tssd_ops.ssd_chunk(x.half(), dt, cs, Bm.half(), Cm.half(), chunk=16)
+    with pytest.raises(ValueError, match="devices"):
+        tssd_ops.ssd_chunk(x, dt, cs, Bm.cpu(), Cm, chunk=16)
+    with pytest.raises(ValueError, match="device"):
+        tssd_ops.ssd(x, dt, a.cpu(), Bm, Cm, chunk=16)

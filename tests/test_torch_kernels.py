@@ -142,7 +142,7 @@ def test_library_name_is_keyed_by_source_content(tmp_path):
     assert _build.library_path(src) != first
     assert first.parent == _build.BUILD_DIR
     assert sorted(p.name for p in _build.sources()) == [
-        "flash_attention.cu", "rmsnorm.cu"]
+        "flash_attention.cu", "rmsnorm.cu", "ssd.cu"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

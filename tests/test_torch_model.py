@@ -75,7 +75,7 @@ def _flat_defs(tree, prefix=()):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["mamba2-130m"])
 def test_param_defs_match_reference_leaf_for_leaf(name):
     jdefs = jregistry.param_defs(jconfigs.reduced(jconfigs.get(name)))
     tdefs = tregistry.param_defs(tconfigs.reduced(tconfigs.get(name)))
@@ -112,8 +112,15 @@ def test_init_params_draws_the_reference_distributions():
     assert torch.equal(again["embed"], params["embed"])
 
 
-def test_convert_carries_bf16_bits_exactly(arch):
-    _, _, jparams, tparams = arch
+@pytest.mark.parametrize("name", ARCHS + ["mamba2-130m"])
+def test_convert_carries_bf16_bits_exactly(name):
+    """Every leaf crosses bit for bit: bf16 (embeddings, projections, the
+    ssm block's in_proj/conv/out_proj) and fp32 (norms, a_log, dt_bias,
+    d_skip)."""
+    jparams = jregistry.init(jconfigs.reduced(jconfigs.get(name)),
+                             jax.random.PRNGKey(0))
+    tparams = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
     jl = jax.tree_util.tree_leaves(jparams)
     tl = jax.tree_util.tree_leaves(tparams)
     assert len(jl) == len(tl)
@@ -284,7 +291,7 @@ def test_port_prefill_decode_consistent_with_forward(arch):
     assert rel_err(_t2np(full.logits[:, -1]), _t2np(dec.logits[:, 0])) < REL_TOL
 
 
-@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "mamba2-130m",
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "jamba-v0.1-52b",
                                   "qwen2-vl-7b", "whisper-medium"])
 def test_unported_families_raise_naming_their_roadmap_item(name):
     cfg = tconfigs.reduced(tconfigs.get(name))

@@ -22,7 +22,8 @@ from repro_torch.launch import serve
 from repro_torch.models import convert
 
 REL_TOL = 3e-2     # as tests/test_torch_model.py: bf16 in both packages
-SRC = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
+SRC = os.path.join(ROOT, "src")
 
 
 def _reference_serve(cfg, params, prompts, gen_tokens):
@@ -100,29 +101,24 @@ def test_serve_cli_runs_reduced_on_cpu(capsys):
     assert "first sequence:" in out
 
 
-MODULES = [
-    "repro_torch", "repro_torch.device", "repro_torch.configs",
-    "repro_torch.data.synth", "repro_torch.models", "repro_torch.models.config",
-    "repro_torch.models.params", "repro_torch.models.convert",
-    "repro_torch.models.layers", "repro_torch.models.lm",
-    "repro_torch.models.registry", "repro_torch.train.steps",
-    "repro_torch.launch.serve", "repro_torch.launch.profile_serve",
-    "repro_torch.kernels._build",
-    "repro_torch.kernels.rmsnorm.ops", "repro_torch.kernels.rmsnorm.ref",
-    "repro_torch.kernels.flash_attention.ops",
-    "repro_torch.kernels.flash_attention.ref",
-]
-
-
 def test_port_imports_no_jax_ml_dtypes_or_reference():
+    """Import every module of ``repro_torch`` (walked, so a new module
+    cannot slip past) and ``chip_smoke`` (without running it), then check
+    that no JAX, ml_dtypes or reference module was loaded."""
     code = (
-        "import importlib, sys\n"
-        f"for m in {MODULES!r}:\n"
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "assert 'repro_torch.kernels.ssd.ops' in mods, mods\n"
+        f"sys.path.insert(0, {ROOT!r})\n"
+        "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"
-        "print('clean', len(sys.modules))\n")
+        "print('clean', len(mods))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
