@@ -11,12 +11,14 @@ Phases (any failure exits non-zero; none is caught and passed over):
      the test shapes and at the serving paths' shapes; time the kernel, the
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick the port never calls), each
-     with a cold L2;
+     with a cold L2; for flash also print the achieved TFLOP/s, the share
+     of its bound and the ratio to the library's time;
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
-     launches of that run; hold its logits against the same prompts run
-     through the plain path (every kernel replaced by its plain version);
+     launches of that run (every flash launch on the bf16 tensor-core
+     kernel); hold its logits against the same prompts run through the
+     plain path (every kernel replaced by its plain version);
   4b. the same for mamba2-130m (the ssm family: the SSD chunk kernel in
      prefill, RMSNorm in every forward), with its own counts and plain path;
   5. print one ``{"kernels": [...]}`` line, then the result line
@@ -157,6 +159,11 @@ def check_flash(dev, timer, peaks):
         (1, 512, 512, 2, 2, 64, True, 128, 0),
         (1, 15, 15, 2, 2, 64, True, 0, 0),
         (2, 32, 96, 4, 2, 64, True, 24, 0),            # + per-row offsets
+        # the bf16 kernel's 64 x 64 tiles: ragged edges past one and two
+        # tiles, GQA group 8, windows inside one kv tile and across two
+        (2, 65, 129, 8, 1, 128, True, 0, 64),
+        (1, 127, 127, 4, 1, 32, True, 40, 0),
+        (2, 200, 260, 4, 2, 128, True, 100, 30),
         (BATCH, PROMPT, PROMPT + GEN, 16, 8, 128, True, 0, 0),  # prefill
     ]
     for i, (b, sq, sk, h, kvh, d, causal, window, qoff) in enumerate(cases):
@@ -191,14 +198,21 @@ def check_flash(dev, timer, peaks):
     flops = 4 * d * pairs                   # q·k and p·v, 2 flops per MAC
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + off.numel() * 4
     t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    before_tc = ops.flash_attention.launches_tc
     out = {"ms": timer(lambda: ops.flash_attention(q, k, v, off, **kw)),
            "plain_ms": timer(lambda: ref.attention_ref(q, k, v, off, **kw)),
            "library_ms": timer(lib),
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "max_abs_err": err}
+    require(ops.flash_attention.launches_tc > before_tc,
+            "the bf16 flash call did not run the tensor-core kernel")
     print(f"flash {tuple(q.shape)} x {tuple(k.shape)} bf16 causal: "
           + json.dumps(out) + f" (library vs plain max_abs_err {lib_err:.3g})")
+    print(f"flash bf16 at the prefill shape: {flops / out['ms'] / 1e9:.1f} "
+          f"TFLOP/s achieved, {out['bound_ms'] / out['ms']:.1%} of its bound, "
+          f"{out['ms'] / out['library_ms']:.2f}x the library's time "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     return out
 
 
@@ -349,13 +363,16 @@ def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
 
 
 def launch_counters():
-    """{kernel name: its wrapper}; each wrapper's ``launches`` counts the
-    kernel launches since it was last set to 0."""
+    """{count name: (wrapper, attribute)}; each attribute counts kernel
+    launches since it was last set to 0. ``flash_attention_tc`` counts the
+    flash launches that ran the bf16 tensor-core kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
-    return {"rmsnorm": rn_ops.rmsnorm,
-            "flash_attention": fa_ops.flash_attention, "ssd": ssd_ops.ssd}
+    return {"rmsnorm": (rn_ops.rmsnorm, "launches"),
+            "flash_attention": (fa_ops.flash_attention, "launches"),
+            "flash_attention_tc": (fa_ops.flash_attention, "launches_tc"),
+            "ssd": (ssd_ops.ssd, "launches")}
 
 
 def serve_path(dev, cfg, plain, alt, expect):
@@ -381,10 +398,11 @@ def serve_path(dev, cfg, plain, alt, expect):
     serve.run(cfg, params, prompts, 2)            # warm-up: cuBLAS, libraries
     torch.cuda.reset_peak_memory_stats(dev)
     counters = launch_counters()
-    for wrapper in counters.values():
-        wrapper.launches = 0
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
     res = serve.run(cfg, params, prompts, GEN)    # the main path
-    launches = {name: wrapper.launches for name, wrapper in counters.items()}
+    launches = {name: getattr(wrapper, attr)
+                for name, (wrapper, attr) in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tok_s = BATCH * (GEN - 1) / res.decode_s
     print(f"serve {cfg.name}: prefill {res.prefill_s * 1e3:.2f} ms; decode "
@@ -416,13 +434,15 @@ def serve_path(dev, cfg, plain, alt, expect):
 
 
 def serve_full(dev):
-    """internlm2-1.8b: flash in each layer of prefill, 2 norms a layer and
-    the final norm in every forward (one prefill + GEN-1 decodes)."""
+    """internlm2-1.8b: flash in each layer of prefill, every one on the
+    bf16 tensor-core kernel; 2 norms a layer and the final norm in every
+    forward (one prefill + GEN-1 decodes)."""
     from repro_torch import configs
     cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
     return serve_path(dev, cfg, plain_last_logits, "reference", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
-        "flash_attention": cfg.num_layers, "ssd": 0})
+        "flash_attention": cfg.num_layers,
+        "flash_attention_tc": cfg.num_layers, "ssd": 0})
 
 
 def serve_ssm(dev):
@@ -434,7 +454,7 @@ def serve_ssm(dev):
     cfg = configs.get(SSM_ARCH)
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
-        "flash_attention": 0, "ssd": cfg.num_layers})
+        "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers})
 
 
 def _leaves(tree):

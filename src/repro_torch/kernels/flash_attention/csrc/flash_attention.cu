@@ -9,82 +9,87 @@
 // shape q (4, 512, 16, 128), k/v (4, 544, 8, 128) bf16 the call must move
 // about 26 MB (q, k, v read once, out written once) against about 4.3 GFLOP
 // of causal products: ~7.7 us at 3.35 TB/s vs ~4.4 us at 989 TFLOP/s bf16
-// on an H100 SXM. A kernel that reaches that bound needs the tensor cores
-// (wgmma) fed by TMA; that is later work.
+// on an H100 SXM. Reaching either needs the products on the tensor cores
+// and the loads off the threads' critical path.
 //
-// Design (right and simple first): the products run on the CUDA cores in
-// fp32, so the kernel is bounded in practice by shared-memory traffic and
-// fp32 issue rate, not by device memory. What it does keep from the TPU
-// kernel is the part that saves bytes and work: K/V are read tile by tile
-// into shared memory and never re-read from device memory by the block,
-// the (Sq x Sk) score matrix never leaves registers, and tiles wholly
-// outside the causal/window mask are never loaded.
-//  * One block per (q tile of 32 rows, q head, batch row); 4 warps, each
-//    owning 8 query rows and their fp32 state (m, l, acc) in registers.
-//  * GQA: q head h reads kv head h / (H / KV).
-//  * Per kv tile of 32 keys: lane j scores key j against the warp's 8 rows
-//    (K rows padded to D + 1 floats, so the 32 lanes hit 32 banks); the
-//    running max and sum are warp-shuffle reductions; P·V broadcasts each
-//    p_j by shuffle while lane l accumulates dims l, l + 32, ...
-//  * q_offset is per batch row (B,) int32, read on the device.
-//  * Ragged edges are masked here: query rows >= Sq are neither computed
-//    into the output nor stored, keys >= Sk get p = 0 and zero-filled K/V
-//    rows. There is no tiling constraint on Sq or Sk.
-// Masked-but-existing keys get the score -1e30, exactly as in the TPU
-// kernel, so a row matches the oracle whenever it has one unmasked key.
+// Two kernels, chosen by the input type (the wrapper dispatches on it):
+//
+// bf16: the tensor-core kernel (flash_fwd_tc). Both products are wgmma,
+// K/V tiles come in by TMA, nothing is widened in shared memory.
+//  * One block per (q tile of 64 rows, q head, batch row): one consumer
+//    warpgroup (wgmma's M = 64) and one producer warp. The q tiles are
+//    launched last first, so the longest causal rows start first.
+//  * The producer loads the Q tile once and then K/V tiles of 64 keys into
+//    a 2-stage ring, by TMA with 128-byte swizzle (64-byte at head_dim 32);
+//    a head_dim 128 row is two boxes of 64 dims. "full" mbarriers carry the
+//    TMA byte counts, "empty" ones the consumers' release of a stage.
+//  * S = Q Kᵀ: wgmma m64n64k16, A = Q and B = K from shared memory, both
+//    K-major (d contiguous) as they are stored.
+//  * Online softmax on the fp32 accumulator fragment: a row's 64 scores lie
+//    in a quad of threads (shfl_xor 1, 2); exp2 with log2(e) folded into
+//    the scale; each thread keeps its share of the running sum, reduced
+//    once at the end.
+//  * O += P V: P is rounded to bf16 in registers, where the S fragment is
+//    already wgmma's register A layout; V is the MN-major (transposed) B
+//    operand from shared memory. O stays in fp32 registers. The running
+//    sum is of the fp32 p; P's rounding moves an output by at most
+//    2^-9 max|v| before the bf16 store, inside the bf16 tolerance.
+//  * Epilogue: O / max(l, 1e-30) in bf16, rows >= Sq not stored.
+//  * GQA: q head h reads kv head h / (H / KV); q_offset is per batch row
+//    (B,) int32, read on the device.
+//  * Ragged edges: TMA zero-fills rows past Sq and Sk inside each batch row
+//    (4-D maps over (D, heads, rows, batch)); keys >= Sk get p = 0 in the
+//    kernel as well, query rows >= Sq are not stored. There is no tiling
+//    constraint on Sq or Sk. Tiles wholly outside the causal/window mask
+//    are never loaded (the loop bounds); the per-element mask runs only on
+//    tiles that cross a mask edge.
+//
+// fp32: the CUDA-core kernel (flash_fwd_fp32). The tensor cores cannot hold
+// the fp32 tolerance (2e-5), so fp32 inputs keep plain fp32 FMAs: one block
+// per (q tile of 32 rows, q head, batch row), 4 warps of 8 query rows, K/V
+// tiles of 32 keys in shared memory (K rows padded to D + 1 floats against
+// bank conflicts), warp-shuffle softmax, P·V broadcast by shuffle. No
+// serving path runs it: the models serve in bf16.
+//
+// Masked-but-existing keys get the score -1e30 in both kernels, exactly as
+// in the TPU kernel, so a row matches the oracle whenever it has one
+// unmasked key.
+#include <cuda.h>  // CUtensorMap and its encoder's type; the encoder is
+                   // fetched through the runtime, so libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+
+// ====================================================== fp32, CUDA cores
+namespace simt {
+
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 8;
 constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBK = 32;                     // keys per tile (one per lane)
 constexpr int kThreads = 32 * kWarps;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  float4 u = *reinterpret_cast<const float4*>(p);
-  v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-  uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void store_one(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Rows [row0, row0 + n_rows) of a (rows, D) slab with row stride
-// `src_stride` elements, into fp32 shared memory with row stride
-// `dst_stride`; rows at or past `n_valid` are zero-filled.
-template <typename T, int D>
+// `src_stride` elements, into shared memory with row stride `dst_stride`;
+// rows at or past `n_valid` are zero-filled.
+template <int D>
 __device__ __forceinline__ void load_rows(float* dst, int dst_stride,
-                                          const T* src, size_t src_stride,
+                                          const float* src, size_t src_stride,
                                           int row0, int n_valid, int n_rows) {
-  constexpr int V = 16 / sizeof(T);
-  constexpr int kVecPerRow = D / V;
+  constexpr int kVecPerRow = D / 4;
   for (int i = threadIdx.x; i < n_rows * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * V;
-    float vals[V];
-    if (row0 + r < n_valid) {
-      load_vec(src + static_cast<size_t>(row0 + r) * src_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) vals[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[r * dst_stride + c + j] = vals[j];
+    const int c = (i % kVecPerRow) * 4;
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_valid)
+      u = *reinterpret_cast<const float4*>(
+          src + static_cast<size_t>(row0 + r) * src_stride + c);
+    float* d = dst + r * dst_stride + c;
+    d[0] = u.x; d[1] = u.y; d[2] = u.z; d[3] = u.w;
   }
 }
 
@@ -104,12 +109,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (kBQ * D + kBK * (D + 1) + kBK * D);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ q_offset,
-                 T* __restrict__ out, int Sq, int Sk, int H, int KV,
-                 int causal, int window, float scale) {
+flash_fwd_fp32(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const int* __restrict__ q_offset,
+               float* __restrict__ out, int Sq, int Sk, int H, int KV,
+               int causal, int window, float scale) {
   constexpr int DL = D / 32;  // accumulator dims per lane
   extern __shared__ float smem[];
   float* sQ = smem;                  // kBQ x D
@@ -126,10 +131,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_stride = static_cast<size_t>(H) * D;   // between q rows
   const size_t kv_stride = static_cast<size_t>(KV) * D;
-  const T* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
-  const T* kb = k + (static_cast<size_t>(b) * Sk * KV + hk) * D;
-  const T* vb = v + (static_cast<size_t>(b) * Sk * KV + hk) * D;
-  load_rows<T, D>(sQ, D, qb, q_stride, q0, Sq, kBQ);
+  const float* qb = q + (static_cast<size_t>(b) * Sq * H + h) * D;
+  const float* kb = k + (static_cast<size_t>(b) * Sk * KV + hk) * D;
+  const float* vb = v + (static_cast<size_t>(b) * Sk * KV + hk) * D;
+  load_rows<D>(sQ, D, qb, q_stride, q0, Sq, kBQ);
 
   // kv tiles that hold at least one unmasked key for some row of the block
   const int n_tiles = (Sk + kBK - 1) / kBK;
@@ -151,8 +156,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t = t_begin; t < t_end; ++t) {
     __syncthreads();  // the previous tile (and, first time, nothing) is consumed
-    load_rows<T, D>(sK, D + 1, kb, kv_stride, t * kBK, Sk, kBK);
-    load_rows<T, D>(sV, D, vb, kv_stride, t * kBK, Sk, kBK);
+    load_rows<D>(sK, D + 1, kb, kv_stride, t * kBK, Sk, kBK);
+    load_rows<D>(sV, D, vb, kv_stride, t * kBK, Sk, kBK);
     __syncthreads();
 
     // s[r] = q_r . k_lane
@@ -213,14 +218,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + warp * kRowsPerWarp + r;
     if (qi >= Sq) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* o = out + (static_cast<size_t>(b) * Sq + qi) * q_stride
-               + static_cast<size_t>(h) * D;
+    float* o = out + (static_cast<size_t>(b) * Sq + qi) * q_stride
+                   + static_cast<size_t>(h) * D;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) store_one(o + lane + 32 * i, acc[r][i] * inv);
+    for (int i = 0; i < DL; ++i) o[lane + 32 * i] = acc[r][i] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* q_offset,
            void* out, int B, int Sq, int Sk, int H, int KV, int causal,
            int window, float scale, cudaStream_t stream) {
@@ -228,51 +233,524 @@ int launch(const void* q, const void* k, const void* v, const void* q_offset,
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_fp32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_offset),
-      static_cast<T*>(out), Sq, Sk, H, KV, causal, window, scale);
+  flash_fwd_fp32<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(q_offset),
+      static_cast<float*>(out), Sq, Sk, H, KV, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, const void* q_offset,
-             void* out, int B, int Sq, int Sk, int H, int KV, int D,
-             int causal, int window, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+}  // namespace simt
+
+// ================================================ bf16, tensor cores
+namespace tc {
+
+constexpr int kBQ = 64;          // query rows per block: wgmma's M
+constexpr int kBK = 64;          // keys per K/V tile
+constexpr int kStages = 2;       // depth of the K/V ring
+constexpr int kConsumers = 128;  // one warpgroup
+constexpr int kThreads = kConsumers + 32;  // + the producer warp
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared-memory geometry at head_dim D. A tile is stored as TMA writes it:
+// column blocks of kCB dims, each (rows x kCB) with kCB * 2 bytes a row,
+// swizzled (128 B rows: 128-byte swizzle; 64 B rows at D = 32: 64-byte).
+template <int D>
+struct Geom {
+  static constexpr int kCB = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kCB * 2;
+  static constexpr int kAtomBytes = 8 * kRowBytes;       // 8 rows: one swizzle atom
+  static constexpr int kLayout = kRowBytes == 128 ? 1 : 2;  // descriptor: 128B / 64B swizzle
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kTileBytes = kBK * D * 2;          // one K or V tile
+  static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
+  // + 1 KB to align the base to the 1024-byte swizzle period
+  static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static_assert(D % 16 == 0 && D % kCB == 0, "head_dim");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarrier
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+// Returns once the phase of parity `parity` has completed. A phase that
+// never completes (a lost TMA transaction) traps after ~10^10 cycles, so a
+// fault ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > 10000000000ll) __trap();
+}
+
+// ---- TMA: one box of a 4-D map into shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle layout.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+       | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
+       | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
+       | static_cast<uint64_t>(layout) << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses to `r` across a wgmma boundary.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 32] += A[64 x 16] * B[16 x 32], A from registers, B from shared
+// memory stored MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 64] += A[64 x 16] * B[16 x 64], A from registers, B from shared
+// memory stored MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 128] += A[64 x 16] * B[16 x 128], A from registers, B from shared
+// memory stored MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 32) wgmma_rs_n32(d, a, desc_b, 1);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, desc_b, 1);
+  else wgmma_rs_n128(d, a, desc_b, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Fragments: in a wgmma m64nN accumulator, thread t of warp w holds rows
+// r = 16 w + (t % 32) / 4 and r + 8; its registers 4 j .. 4 j + 3 are
+// (r, c), (r, c + 1), (r + 8, c), (r + 8, c + 1) with c = 8 j + 2 (t % 4).
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const int* __restrict__ q_offset, __nv_bfloat16* __restrict__ out,
+             int Sq, int Sk, int H, int KV, int causal, int window,
+             float scale_log2) {
+  using G = Geom<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sK = sQ + G::kQBytes;                 // kStages tiles
+  const uint32_t sV = sK + kStages * G::kTileBytes;    // kStages tiles
+  const uint32_t q_bar = sV + kStages * G::kTileBytes;
+  const uint32_t full_bar = q_bar + 8;                 // kStages barriers
+  const uint32_t empty_bar = full_bar + 8 * kStages;   // kStages barriers
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;   // longest rows first
+  const int hk = h / (H / KV);
+  const int qoff = q_offset[b];
+
+  // kv tiles that hold at least one unmasked key for some row of the block
+  const int n_tiles = (Sk + kBK - 1) / kBK;
+  const int q_lo = qoff + q0;
+  const int q_hi = qoff + min(q0 + kBQ, Sq) - 1;
+  int t_end = n_tiles;
+  if (causal) t_end = q_hi < 0 ? 0 : min(n_tiles, q_hi / kBK + 1);
+  const int t_begin = window > 0 ? max(0, q_lo - window + 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar + 8 * s, 1);
+      mbar_init(empty_bar + 8 * s, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    // ---------------------------------------------------------- producer
+    if (lane == 0) {
+      mbar_expect_tx(q_bar, G::kQBytes);
+#pragma unroll
+      for (int c = 0; c < D / G::kCB; ++c)
+        tma_load(sQ + c * kBQ * G::kRowBytes, &tm_q, q_bar, c * G::kCB, h, q0, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStages;
+        mbar_wait(empty_bar + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full_bar + 8 * s, 2 * G::kTileBytes);
+#pragma unroll
+        for (int c = 0; c < D / G::kCB; ++c) {
+          const uint32_t off = s * G::kTileBytes + c * kBK * G::kRowBytes;
+          tma_load(sK + off, &tm_k, full_bar + 8 * s, c * G::kCB, hk, t * kBK, b);
+          tma_load(sV + off, &tm_v, full_bar + 8 * s, c * G::kCB, hk, t * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int row = 16 * warp + lane / 4;    // and row + 8
+  const int qp_a = qoff + q0 + row;        // query positions of the two rows
+  const int qp_b = qp_a + 8;
+  const int col = 2 * (lane % 4);          // + 8 j (+ 1)
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    const int s = i % kStages;
+    mbar_wait(full_bar + 8 * s, (i / kStages) & 1);
+    const uint32_t k_tile = sK + s * G::kTileBytes;
+    const uint32_t v_tile = sV + s * G::kTileBytes;
+
+    // S = Q Kᵀ: D / 16 steps of k16; a step moves 32 bytes along a swizzled
+    // row, and to the next column block after kCB / 16 steps
+    float sc[kBK / 2];
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int cb = kk / (G::kCB / 16), w = kk % (G::kCB / 16);
+      const uint64_t da = make_desc(sQ + cb * kBQ * G::kRowBytes + 32 * w, 16,
+                                    G::kAtomBytes, G::kLayout);
+      const uint64_t db = make_desc(k_tile + cb * kBK * G::kRowBytes + 32 * w, 16,
+                                    G::kAtomBytes, G::kLayout);
+      wgmma_ss_n64(sc, da, db, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // scores in log2 units; the mask only on tiles that cross an edge
+    const int k0 = t * kBK;
+    const bool inside = k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= q_lo)
+                        && (window <= 0 || q_hi - k0 < window);
+    if (inside) {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) sc[j] *= scale_log2;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kBK / 2; ++j) {
+        const int key = k0 + 8 * (j / 4) + col + (j % 2);
+        const int qp = (j % 4) < 2 ? qp_a : qp_b;
+        bool keep = key < Sk;
+        if (causal) keep = keep && key <= qp;
+        if (window > 0) keep = keep && qp - key < window;
+        sc[j] = keep ? sc[j] * scale_log2 : kNegInf;
+      }
+    }
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kBK / 2; j += 4) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[j], sc[j + 1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[j + 2], sc[j + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, x));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, x));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 2; ++j) {
+      const bool is_a = (j % 4) < 2;
+      float p = exp2f(sc[j] - (is_a ? mn_a : mn_b));
+      if (!inside && k0 + 8 * (j / 4) + col + (j % 2) >= Sk) p = 0.f;
+      sc[j] = p;
+      if (is_a) sum_a += p; else sum_b += p;
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int j = 0; j < D / 2; j += 4) {
+      o[j] *= alpha_a;
+      o[j + 1] *= alpha_a;
+      o[j + 2] *= alpha_b;
+      o[j + 3] *= alpha_b;
+    }
+
+    // P in bf16: the accumulator fragment of keys 16 kk .. 16 kk + 15 is
+    // wgmma's register A fragment of the k16 step kk
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P V: V is MN-major; a k16 step is 16 key rows, the next column
+    // block of kCB dims lies kBK rows on (the leading byte offset)
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs<D>(o, pa[kk],
+                  make_desc(v_tile + 16 * kk * G::kRowBytes, kBK * G::kRowBytes,
+                            G::kAtomBytes, G::kLayout));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    mbar_arrive(empty_bar + 8 * s);   // the stage may be refilled
+  }
+
+  // epilogue: each row's sum lies in its quad
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, x);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, x);
+  }
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  const size_t row_stride = static_cast<size_t>(H) * D;
+  __nv_bfloat16* out_a = out + (static_cast<size_t>(b) * Sq + q0 + row) * row_stride
+                             + static_cast<size_t>(h) * D + col;
+  __nv_bfloat16* out_b = out_a + 8 * row_stride;
+  const bool store_a = q0 + row < Sq, store_b = q0 + row + 8 < Sq;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    if (store_a)
+      *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+    if (store_b)
+      *reinterpret_cast<__nv_bfloat162*>(out_b + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
   }
 }
+
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+#if CUDART_VERSION >= 12050
+    cudaDriverEntryPointQueryResult found;
+    const bool ok = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess;
+#else
+    const bool ok = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault) == cudaSuccess;
+#endif
+    if (ok && p != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (batch, rows, heads, D) tensor, dims
+// innermost first, with a (kCB dims, 1 head, box_rows rows, 1 batch) box.
+// Rows past `rows` read as zeros within each batch row.
+template <int D>
+bool encode(CUtensorMap* map, const void* ptr, int batch, int rows, int heads,
+            int box_rows) {
+  using G = Geom<D>;
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * D * heads, 2ull * D * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(G::kCB), 1u,
+                             static_cast<cuuint32_t>(box_rows), 1u};
+  const cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            G::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* q_offset,
+           void* out, int B, int Sq, int Sk, int H, int KV, int causal,
+           int window, float scale, cudaStream_t stream) {
+  using G = Geom<D>;
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_fwd_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  CUtensorMap tm_q, tm_k, tm_v;
+  if (!encode<D>(&tm_q, q, B, Sq, H, kBQ) || !encode<D>(&tm_k, k, B, Sk, KV, kBK)
+      || !encode<D>(&tm_v, v, B, Sk, KV, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(H, B, (Sq + kBQ - 1) / kBQ);
+  flash_fwd_tc<D><<<grid, kThreads, G::kSmem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const int*>(q_offset),
+      static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, causal, window,
+      scale * kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
 extern "C" {
 
-// q, out: (B, Sq, H, D); k, v: (B, Sk, KV, D), all contiguous, fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1); q_offset: (B,) int32 on the device.
-// window <= 0 means global. D in {32, 64, 128}. Returns the launch's
-// cudaError_t (0 = launched).
-int flash_attention_fwd(const void* q, const void* k, const void* v,
-                        const void* q_offset, void* out, int B, int Sq, int Sk,
-                        int H, int KV, int D, int causal, int window,
-                        int is_bf16, float scale, void* stream) {
+// q, out: (B, Sq, H, D); k, v: (B, Sk, KV, D), all contiguous, 16-byte
+// aligned; q_offset: (B,) int32 on the device. window <= 0 means global.
+// D in {32, 64, 128}. Each returns the launch's cudaError_t (0 = launched).
+
+// bf16: the tensor-core kernel
+int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
+                             const void* q_offset, void* out, int B, int Sq,
+                             int Sk, int H, int KV, int D, int causal,
+                             int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? launch_d<__nv_bfloat16>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, D, causal, window, scale, s)
-      : launch_d<float>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, D, causal, window, scale, s);
+  switch (D) {
+    case 32: return tc::launch<32>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 64: return tc::launch<64>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 128: return tc::launch<128>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// fp32: the CUDA-core kernel
+int flash_attention_fwd_fp32(const void* q, const void* k, const void* v,
+                             const void* q_offset, void* out, int B, int Sq,
+                             int Sk, int H, int KV, int D, int causal,
+                             int window, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return simt::launch<32>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 64: return simt::launch<64>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 128: return simt::launch<128>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* kernel_error_string(int code) {

@@ -1,5 +1,10 @@
-"""FlashAttention-forward wrapper: the CUDA kernel on CUDA tensors, the
+"""FlashAttention-forward wrapper: the CUDA kernels on CUDA tensors, the
 plain version on CPU tensors.
+
+On the card the input type picks the kernel: bf16 runs the tensor-core
+kernel (wgmma fed by TMA), fp32 the CUDA-core kernel, whose fp32 products
+hold the fp32 tolerance that bf16 tensor-core products cannot. Both live
+in ``csrc/flash_attention.cu``.
 
 Twin of the JAX package's ``kernels/flash_attention/ops.py``, with two
 differences: ``q_offset`` is per batch row, (B,) int32, because that is
@@ -22,15 +27,19 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # ``models.layers.GLOBAL_WINDOW``); ``models.layers`` takes it from here.
 GLOBAL_WINDOW = 1 << 30
 HEAD_DIMS = (32, 64, 128)     # instantiated in the kernel
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# input type -> the library's launch function for it
+_ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16",
+          torch.float32: "flash_attention_fwd_fp32"}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.flash_attention_fwd.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    lib.flash_attention_fwd.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -54,9 +63,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     b, sq, h, d = q.shape
     _, sk, kvh, _ = k.shape
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q/k/v dtypes {q.dtype}/{k.dtype}/"
-                         f"{v.dtype}; want one of {list(_DTYPES)}")
+                         f"{v.dtype}; want one of {list(_ENTRY)}")
     if k.shape != (b, sk, kvh, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -80,14 +89,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = _lib()
+    entry = _ENTRY[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = lib.flash_attention_fwd(
+    code = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_offset.data_ptr(),
         out.data_ptr(), b, sq, sk, h, kvh, d, int(causal), int(window),
-        _DTYPES[q.dtype], float(d ** -0.5), stream)
-    _build.check(lib, code, "flash_attention_fwd")
+        float(d ** -0.5), stream)
+    _build.check(lib, code, entry)
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.launches_tc += 1
     return out
 
 
-flash_attention.launches = 0   # kernel launches since last set to 0
+flash_attention.launches = 0      # kernel launches since last set to 0
+flash_attention.launches_tc = 0   # of those, the bf16 tensor-core kernel's

@@ -70,6 +70,18 @@ def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
 FLASH_CUDA_CASES = FLASH_CASES + [
     (1, 15, 15, 2, 2, 64, True, 0, 0),        # ragged Sq and Sk
     (4, 512, 544, 16, 8, 128, True, 0, 0),    # the serving prefill shape
+    # the bf16 kernel's tiles are 64 query rows x 64 keys: Sq and Sk on
+    # either side of one and two tiles, GQA groups 1/2/4/8, D 32/64/128
+    (2, 63, 63, 4, 2, 64, True, 0, 0),
+    (2, 64, 64, 8, 1, 128, True, 0, 0),
+    (2, 65, 65, 4, 1, 32, True, 0, 0),
+    (1, 127, 129, 4, 4, 128, True, 0, 2),
+    (1, 128, 127, 4, 2, 64, False, 0, 0),
+    (2, 129, 128, 2, 1, 32, True, 0, 0),
+    (1, 65, 129, 8, 2, 128, True, 0, 64),
+    # a window narrower than one kv tile, and one spanning two
+    (2, 200, 200, 4, 2, 64, True, 40, 0),
+    (2, 200, 260, 4, 2, 128, True, 100, 30),
 ]
 
 
@@ -94,6 +106,38 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_kernel_per_row_offsets_in_different_tiles(cuda, dtype):
+    """Batch rows whose offsets put their queries in different kv tile
+    ranges (0, 70, 150, 236 against Sk = 300), causal and windowed."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    dt = getattr(torch, dtype)
+    q = torch.randn(4, 64, 4, 128, generator=g, device=cuda).to(dt)
+    k = torch.randn(4, 300, 2, 128, generator=g, device=cuda).to(dt)
+    v = torch.randn(4, 300, 2, 128, generator=g, device=cuda).to(dt)
+    off = torch.tensor([0, 70, 150, 236], dtype=torch.int32, device=cuda)
+    for window in (0, 50):
+        out = tfa_ops.flash_attention(q, k, v, off, causal=True, window=window)
+        exp = tfa_ref.attention_ref(q, k, v, off, causal=True, window=window)
+        torch.testing.assert_close(out.float(), exp.float(),
+                                   atol=FLASH_TOL[dtype], rtol=0)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_runs_on_the_tensor_core_kernel_and_fp32_does_not(cuda):
+    q = torch.randn(1, 64, 2, 64, device=cuda)
+    before, before_tc = (tfa_ops.flash_attention.launches,
+                         tfa_ops.flash_attention.launches_tc)
+    tfa_ops.flash_attention(q, q, q)
+    assert (tfa_ops.flash_attention.launches,
+            tfa_ops.flash_attention.launches_tc) == (before + 1, before_tc)
+    tfa_ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    torch.cuda.synchronize()
+    assert (tfa_ops.flash_attention.launches,
+            tfa_ops.flash_attention.launches_tc) == (before + 2, before_tc + 1)
+
+
+@pytest.mark.cuda
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.ones(1, 8, 2, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -101,6 +145,8 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.ones(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         tfa_ops.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+    with pytest.raises(ValueError, match="dtypes"):
+        tfa_ops.flash_attention(q.half(), q.half(), q.half())
 
 
 SSD_CUDA_CASES = [

@@ -133,6 +133,16 @@ def test_flash_global_window_sentinel_means_global():
     torch.testing.assert_close(a, b, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_plain_path_counts_no_kernel_launch(dtype):
+    """A CPU tensor takes the plain version: neither launch count moves."""
+    (_, qt), (_, kt), (_, vt) = _qkv((1, 16, 16, 2, 1, 32), dtype)
+    fa = tfa_ops.flash_attention
+    before = (fa.launches, fa.launches_tc)
+    fa(qt, kt, vt, causal=True)
+    assert (fa.launches, fa.launches_tc) == before
+
+
 # ------------------------------------------------------------------ build
 def test_library_name_is_keyed_by_source_content(tmp_path):
     src = tmp_path / "k.cu"
