@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick the port never calls), each
      with a cold L2; for flash also print the achieved TFLOP/s, the share
-     of its bound and the ratio to the library's time;
+     of its bound and the ratio to the library's time; for RMSNorm also the
+     wrapper's host µs per call beside the library call's;
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
@@ -20,7 +21,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
      kernel); hold its logits against the same prompts run through the
      plain path (every kernel replaced by its plain version);
   4b. the same for mamba2-130m (the ssm family: the SSD chunk kernel in
-     prefill, RMSNorm in every forward), with its own counts and plain path;
+     prefill, every launch on its bf16 tensor-core kernel, RMSNorm in every
+     forward), with its own counts and plain path;
   5. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -50,9 +52,10 @@ ARCH, BATCH, PROMPT, GEN, SEED = "internlm2-1.8b", 4, 512, 32, 0
 SSM_ARCH = "mamba2-130m"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 2e-2
-# The SSD kernel computes in fp32 from either input type; the reference's
+# The SSD kernels compute in fp32 (the bf16 tensor-core kernel through
+# products split into bf16 halves, ~2^-18 of each term); the reference's
 # own tolerance (tests/test_kernels.py), relative to max |y| and to
-# max(max |h|, 1), holds it for both.
+# max(max |h|, 1), holds both kernels for both input types.
 SSD_TOL = 1e-4
 # The serving run vs the plain path, max |diff| / max |logit|: 24 layers
 # with a bf16 residual stream (48 bf16 adds) turn one-ulp rounding
@@ -72,23 +75,30 @@ def card_peaks(name: str) -> tuple[float, float, float]:
 class ColdTimer:
     """Mean device ms of ``fn`` over ``n`` launches, each after reading a
     buffer larger than the 50 MB L2 (a read leaves no dirty lines for the
-    timed launch to write back), with CUDA events around the launch only."""
+    timed launch to write back), with CUDA events around the launch only.
+    After the flush the card spins (``torch.cuda._sleep``, ~0.1 ms) while
+    the host queues the start event, ``fn`` and the end event behind it, so
+    at launch-sized shapes the event pair reads device time, not the
+    host's dispatch of ``fn``. The first ``warmup`` rounds are not counted:
+    they bring the card's clocks up after a pause."""
+
+    SPIN_CYCLES = 200_000
 
     def __init__(self, dev: torch.device):
         self.flush = torch.ones(32 << 20, dtype=torch.float32, device=dev)
 
-    def __call__(self, fn, n: int = 20) -> float:
-        fn()
-        torch.cuda.synchronize()
+    def __call__(self, fn, n: int = 20, warmup: int = 5) -> float:
         pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(warmup + n)]
         for start, end in pairs:
             self.flush.sum()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             start.record()
             fn()
             end.record()
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / n
+        return sum(s.elapsed_time(e) for s, e in pairs[warmup:]) / n
 
 
 def require(ok: bool, what) -> None:
@@ -141,9 +151,18 @@ def check_rmsnorm(dev, timer, peaks):
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "max_abs_err": err}
-        print(f"rmsnorm {shape} bf16: " + json.dumps(r))
+        print(f"rmsnorm {shape} bf16: " + json.dumps(r)
+              + f" ({r['ms'] / r['library_ms']:.2f}x the library's time)")
         if shape == (BATCH * PROMPT, 2048):
             out = r
+    # the wrapper's own host cost at the decode shape, beside the library's
+    from repro_torch.launch.rmsnorm_layouts import host_us
+    x, w, _ = rows[(BATCH, 1, 2048)]
+    w_lib = w.to(x.dtype)
+    host = {"rmsnorm_us": host_us(lambda: ops.rmsnorm(x, w)),
+            "library_us": host_us(lambda: F.rms_norm(x, (2048,), w_lib, 1e-5))}
+    print(f"rmsnorm {(BATCH, 1, 2048)} bf16 host µs per call: "
+          + json.dumps(host))
     return out
 
 
@@ -248,6 +267,7 @@ def check_ssd(dev, timer, peaks):
         (2, 64, 3, 16, 32, 16), (1, 128, 4, 32, 16, 32),
         (2, 48, 2, 16, 8, 16), (1, 96, 8, 8, 8, 32),     # tests/test_kernels.py
         (2, 16, 16, 16, 16, 8),                          # reduced mamba2
+        (1, 256, 4, 64, 16, 128),                        # jamba's SSMCfg
         serving,
     ]
     for case in cases:
@@ -282,7 +302,10 @@ def check_ssd(dev, timer, peaks):
     x, dt, a, bm, cm = inputs(b, s, h, p, n)
     x, bm, cm = x.bfloat16(), bm.bfloat16(), cm.bfloat16()
     cs = cumsum(dt, a, chunk)
+    before_tc = ops.ssd.launches_tc
     y, st = ops.ssd_chunk(x, dt, cs, bm, cm, chunk=chunk)
+    require(ops.ssd.launches_tc == before_tc + 1,
+            "the bf16 serving-shape ssd_chunk did not run the tensor-core kernel")
     err = max_err(y, ref.ssd_chunk_ref(x, dt, cs, bm, cm, chunk=chunk)[0])
     nc = s // chunk
     # least work: the causal half (j <= i) of C Bᵀ and of W X, and B^T X
@@ -300,8 +323,9 @@ def check_ssd(dev, timer, peaks):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "max_abs_err": err}
     print(f"ssd_chunk {serving} bf16: " + json.dumps(out)
-          + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; at the fp32 "
-          f"non-tensor peak the products alone take {flops / peaks[2] * 1e3:.4f} ms)")
+          + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+          f"{out['bound_ms'] / out['ms']:.1%} of its bound, "
+          f"{out['ms'] / out['bound_ms']:.2f}x it)")
     return out
 
 
@@ -364,15 +388,17 @@ def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
 
 def launch_counters():
     """{count name: (wrapper, attribute)}; each attribute counts kernel
-    launches since it was last set to 0. ``flash_attention_tc`` counts the
-    flash launches that ran the bf16 tensor-core kernel."""
+    launches since it was last set to 0. ``flash_attention_tc`` and
+    ``ssd_tc`` count the launches that ran the bf16 tensor-core kernel of
+    flash and of the SSD chunk."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"rmsnorm": (rn_ops.rmsnorm, "launches"),
             "flash_attention": (fa_ops.flash_attention, "launches"),
             "flash_attention_tc": (fa_ops.flash_attention, "launches_tc"),
-            "ssd": (ssd_ops.ssd, "launches")}
+            "ssd": (ssd_ops.ssd, "launches"),
+            "ssd_tc": (ssd_ops.ssd, "launches_tc")}
 
 
 def serve_path(dev, cfg, plain, alt, expect):
@@ -442,11 +468,12 @@ def serve_full(dev):
     return serve_path(dev, cfg, plain_last_logits, "reference", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
         "flash_attention": cfg.num_layers,
-        "flash_attention_tc": cfg.num_layers, "ssd": 0})
+        "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0})
 
 
 def serve_ssm(dev):
-    """mamba2-130m: the SSD chunk kernel in each layer of prefill; ln1 and
+    """mamba2-130m: the SSD chunk kernel in each layer of prefill, every one
+    on the bf16 tensor-core kernel; ln1 and
     the mixer's gated norm in each layer and the final norm in every
     forward. Decode is the recurrence in plain torch (no kernel there, as
     in the reference)."""
@@ -454,7 +481,8 @@ def serve_ssm(dev):
     cfg = configs.get(SSM_ARCH)
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
-        "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers})
+        "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers,
+        "ssd_tc": cfg.num_layers})
 
 
 def _leaves(tree):
@@ -509,13 +537,18 @@ def main() -> int:
         "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu",
                 "src/repro/kernels/ssd/ssd.py:76"),
     }
-    # launches: the sum over the main paths; each path's count beside it
-    kernels = [{"name": k, "route": "cuda", "source": source,
-                "replaces": replaces,
-                "launches": sum(n[k] for n in by_path.values()),
-                "launches_by_path": {a: n[k] for a, n in by_path.items()},
-                **rows[k]}
-               for k, (source, replaces) in meta.items()]
+    # launches: the sum over the main paths; each path's count beside it,
+    # and for flash and ssd how many ran the bf16 tensor-core kernel
+    kernels = []
+    for k, (source, replaces) in meta.items():
+        row = {"name": k, "route": "cuda", "source": source,
+               "replaces": replaces,
+               "launches": sum(n[k] for n in by_path.values()),
+               "launches_by_path": {a: n[k] for a, n in by_path.items()}}
+        if f"{k}_tc" in launch_counters():
+            row["launches_tensor_core"] = sum(
+                n[f"{k}_tc"] for n in by_path.values())
+        kernels.append({**row, **rows[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

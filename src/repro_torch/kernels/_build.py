@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` (no PyTorch headers, so a
 build takes seconds). A library is built at first use into
 ``build/torch_kernels/`` at the repo root; its file name carries a hash of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. :func:`build_all` starts one ``nvcc`` per source,
+the source, of the shared headers (``include/*.cuh``) and of the flags, so
+an edited source or header is rebuilt and a stale library is never
+loaded. :func:`build_all` starts one ``nvcc`` per source,
 all at once. A failed build raises with nvcc's stderr.
 
 Nothing here runs at import time: the CPU tests import every module on a
@@ -31,9 +32,18 @@ def sources() -> list[Path]:
     return sorted(KERNELS_DIR.glob("*/csrc/*.cu"))
 
 
+def headers() -> list[Path]:
+    """The headers the sources share (``include/*.cuh``), in a stable order."""
+    return sorted((KERNELS_DIR / "include").glob("*.cuh"))
+
+
 def library_path(src: Path) -> Path:
-    """Where the library built from ``src`` lives; keyed by content + flags."""
+    """Where the library built from ``src`` lives; keyed by the content of
+    ``src`` and of every shared header, and by the flags."""
     digest = hashlib.sha256(Path(src).read_bytes())
+    for header in headers():
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(src).stem}-{digest.hexdigest()[:16]}.so"
 

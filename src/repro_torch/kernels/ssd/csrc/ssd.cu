@@ -1,4 +1,4 @@
-// Mamba-2 SSD intra-chunk kernel for Hopper (sm_90a), bound with ctypes
+// Mamba-2 SSD intra-chunk kernels for Hopper (sm_90a), bound with ctypes
 // (plain C ABI).
 //
 // Replaces: src/repro/kernels/ssd/ssd.py:_kernel / ssd_chunk_pallas. For
@@ -12,38 +12,79 @@
 // H 24, P 64, N 128, L 128, bf16 x/B/C) the call must move ~33 MB (x, dt,
 // cs, B, C read once; y and the states written once in fp32): ~9.8 us at
 // 3.35 TB/s, against 2.0 GFLOP of products (the causal halves of C B^T and
-// W X, and B^T X), ~2 us at the bf16 tensor peak. The products here run
-// on the CUDA cores in fp32 (the tolerance against the plain version is
-// 1e-4 of max|y|, which bf16 or TF32 tensor cores do not hold), so ~30 us
-// at the 67 TFLOP/s fp32 peak is this design's floor.
-// Tensor cores (3xTF32 or split bf16) and computing C B^T once per chunk
-// for all heads are its speed work.
+// W X, and B^T X), ~2 us at the bf16 tensor peak, ~30 us at the fp32
+// non-tensor peak. The tolerance against the plain version is 1e-4 of
+// max|y| (and of max(max|h|, 1)), which plain bf16 (2^-9) or TF32 products
+// do not hold.
 //
-// Design (right and simple first): one block of 256 threads per cell, the
-// TPU grid (b, nc, H) as (H, nc, b). Everything the cell reads lives in
-// shared memory as fp32 (dynamic shared memory, opted in above 48 KB):
+// Two kernels, chosen by the wrapper (ops.py `route`) by dtype and shape:
+//
+// bf16 at L in {64, 128}, N and P multiples of 16: the tensor-core kernel
+// (tc::ssd_chunk_tc).
+//  * One block per (group of heads, chunk, batch row): C B^T, the largest
+//    product (L x L x N) and the same for every head, is computed once per
+//    block and applied to each of its heads. The wrapper sizes the group so
+//    that the grid is about one wave (serving: 3 heads, 128 blocks).
+//  * One warpgroup per 64 rows i (wgmma's M); no producer warp, which at
+//    L = 128 would cut every thread's register budget to 168. Thread 0
+//    TMA-loads C and B once (128-byte swizzle, 64-column blocks; N pads to
+//    64 or 128 with zeros) and each head's X tile into a 2-stage mbarrier
+//    ring (a 4-D map over (P, H, S, b); P pads likewise): head g + 1's
+//    tile is requested once every thread is done with head g - 1, so it
+//    arrives while head g computes.
+//  * C B^T: wgmma m64n64k16, both from shared memory K-major (n contiguous,
+//    as stored); the rows 0-63 warpgroup computes only keys j < 64. Each
+//    warpgroup keeps its 64 x (64 (w + 1)) slice as the fp32 accumulator in
+//    registers for all heads. bf16 x bf16 products are exact in fp32, so it
+//    is as exact as an fp32 loop.
+//  * Per head, W = C B^T o exp(cs_i - cs_j) o dt_j is formed on that
+//    fragment; exp (the fast ex2-based one: its relative error, at most
+//    ~5e-6, is far inside the tolerance) is evaluated only for j <= i (the argument
+//    is selected before it: for j > i it is +large, exp overflows, and
+//    inf * 0 is NaN).
+//    W is split into W_hi + W_lo, both bf16 (the residual is ~2^-18 of W),
+//    packed as wgmma's register A operand, and y += W_hi X + W_lo X runs as
+//    RS wgmma against X from shared memory (MN-major, like V in flash).
+//  * The state, state = B^T Xd with Xd = X o dte in fp32: the threads
+//    write Xd split into bf16 hi and lo halves to shared memory in X's
+//    swizzled layout, and state = B^T Xd_hi + B^T Xd_lo runs as SS wgmma
+//    with B^T the MN-major A operand (B as stored) and Xd the MN-major B
+//    operand; each 64-row tile of n goes to one warpgroup, alternating by
+//    head.
+//  * y and the states leave in fp32 as 16-byte stores: a pair of
+//    neighbouring threads swap halves so each holds 4 consecutive columns.
+//
+// fp32, or any other shape: the CUDA-core kernel (simt::ssd_chunk_kernel),
+// whose fp32 products hold the tolerance from fp32 input (the tensor cores
+// would need 3xTF32). No serving path runs it.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "../../include/hopper.cuh"  // mbarriers, TMA, wgmma, tensor maps
+
+namespace {
+
+// ====================================================== fp32, CUDA cores
+// One block of 256 threads per (batch, chunk, head) cell, the TPU grid
+// (b, nc, H) as (H, nc, b). Everything the cell reads lives in shared
+// memory as fp32 (dynamic shared memory, opted in above 48 KB):
 //   Bt  N x (L+4)   B transposed, so a thread loads 4 consecutive j at once
 //   X   L x (P+4)
 //   Ct  N x (T+4)   the C rows of one row tile of T = min(L, 64) rows i
 //   Wt  L x (T+4)   that tile's weights W[i][j], transposed (j rows)
 //   dt, cs, dt*exp(cs_end - cs)   L each
-// At L = N = P = 128 that is 206 KB; at the serving shape 174 KB. Each
-// product is an outer-product loop over 4 x 4 register tiles of the output
-// with 16-byte shared-memory loads (+4 floats of padding per row keeps
-// them aligned); lanes of a warp share one operand (a broadcast) and read
-// consecutive addresses of the other.
+// At L = N = P = 128 that is 206 KB. Each product is an outer-product loop
+// over 4 x 4 register tiles of the output with 16-byte shared-memory loads
+// (+4 floats of padding per row keeps them aligned); lanes of a warp share
+// one operand (a broadcast) and read consecutive addresses of the other.
 //   1. state = Bt . (X o dte), k over the L rows, stored to (b,nc,H,N,P).
 //   2. per row tile: W[i][j] = (C_i . B_j) exp(cs_i - cs_j) dt_j for j <= i;
 //      register tiles wholly above the diagonal are never computed, and
-//      exp(cs_i - cs_j) is evaluated only for j <= i: for j > i it is
-//      exp(+large) = inf in fp32, and inf * 0 would be NaN.
+//      exp(cs_i - cs_j) is evaluated only for j <= i.
 //   3. y rows of the tile = W . X, k over j only up to the tile's last row.
 // Takes L, N, P each a multiple of 4 and at most 128 (the wrapper checks).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
+namespace simt {
 
 constexpr int kThreads = 256;
 constexpr int kRowTile = 64;   // rows i of C B^T held in shared memory at once
@@ -205,23 +246,373 @@ int launch(const void* x, const void* dt, const void* cs, const void* B,
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace simt
+
+// ================================================ bf16, tensor cores
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kMaxGroup = 8;   // heads a block takes at most
+constexpr int kStages = 2;     // depth of the X ring
+
+// Shared memory at chunk L, d_state padded to NB and head_dim to PB (64 or
+// 128). Every tile is column blocks of 64 bf16 by L rows (kBlock bytes
+// each), 128-byte swizzled, from a 1024-byte aligned base.
+template <int L, int NB, int PB>
+struct Geom {
+  static constexpr int kWG = L / 64;                 // warpgroups
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kBlock = L * 128;
+  static constexpr int kCBytes = NB / 64 * kBlock;   // C, and B, of the chunk
+  static constexpr int kXBytes = PB / 64 * kBlock;   // one head's X; each half of Xd
+  static constexpr int kVecFloats = kMaxGroup * L;   // cs, dt, dte of the heads
+  static constexpr int kBarBytes = 8 * (1 + kStages);
+  static constexpr int kSmem = 1024 + 2 * kCBytes + kStages * kXBytes + 2 * kXBytes
+                               + 3 * kVecFloats * 4 + kBarBytes;
+  static_assert(L == 64 || L == 128, "chunk");
+  static_assert((NB == 64 || NB == 128) && (PB == 64 || PB == 128), "widths");
+};
+
+__device__ __forceinline__ void widen8(uint4 u, float (&v)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// a = hi + lo, both bf16, for a pair of floats; returns (hi, lo) packed
+__device__ __forceinline__ uint2 split_bf16(float a0, float a1) {
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(a0, a1);
+  const float2 h = __bfloat1622float2(hi);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a0 - h.x, a1 - h.y);
+  return make_uint2(*reinterpret_cast<const uint32_t*>(&hi),
+                    *reinterpret_cast<const uint32_t*>(&lo));
+}
+
+// Store a warpgroup's 64 x PB fp32 accumulator to rows of stride `ld`
+// floats: rows >= `rows` and columns >= `cols` are left out. Neighbouring
+// threads (lane ^ 1) swap halves, so each stores 4 consecutive columns.
+template <int PB>
+__device__ __forceinline__ void store_tile(const float (&a)[PB / 2], float* out,
+                                           size_t ld, int rows, int cols) {
+  const int lane = threadIdx.x % 32;
+  const int r = 16 * (threadIdx.x / 32 % 4) + lane / 4;
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int j = 0; j < PB / 8; ++j) {
+    const float a0 = a[4 * j], a1 = a[4 * j + 1], b0 = a[4 * j + 2], b1 = a[4 * j + 3];
+    const float s0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+    const float s1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+    const int row = odd ? r + 8 : r;
+    const int col = 8 * j + 2 * (lane % 4) - (odd ? 2 : 0);
+    if (row < rows && col < cols)
+      *reinterpret_cast<float4*>(out + row * ld + col) =
+          odd ? make_float4(s0, s1, b0, b1) : make_float4(a0, a1, s0, s1);
+  }
+}
+
+template <int L, int NB, int PB>
+__global__ void __launch_bounds__(Geom<L, NB, PB>::kThreads, 1)
+ssd_chunk_tc(const __grid_constant__ CUtensorMap tm_x,
+             const __grid_constant__ CUtensorMap tm_b,
+             const __grid_constant__ CUtensorMap tm_c,
+             const float* __restrict__ dt, const float* __restrict__ cs,
+             float* __restrict__ y, float* __restrict__ st, int S, int H,
+             int P, int N, int group) {
+  using G = Geom<L, NB, PB>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);   // the same bytes, generic
+  const uint32_t sC = base;
+  const uint32_t sB = sC + G::kCBytes;
+  const uint32_t sX = sB + G::kCBytes;               // kStages tiles
+  const uint32_t sXhi = sX + kStages * G::kXBytes;
+  const uint32_t sXlo = sXhi + G::kXBytes;
+  float* const sCs = reinterpret_cast<float*>(gbase + (sXlo + G::kXBytes - base));
+  float* const sDt = sCs + G::kVecFloats;
+  float* const sDte = sDt + G::kVecFloats;
+  const uint32_t bc_bar = smem_u32(sDte + G::kVecFloats);
+  const uint32_t x_bar = bc_bar + 8;                   // kStages barriers
+
+  const int h0 = blockIdx.x * group;
+  const int nh = min(group, H - h0);
+  const int c = blockIdx.y, b = blockIdx.z;
+  const size_t row0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
+
+  // head g's X tile into stage g % kStages (thread 0 issues every TMA load)
+  auto load_x = [&](int g) {
+    const int s = g % kStages;
+    mbar_expect_tx(x_bar + 8 * s, G::kXBytes);
+#pragma unroll
+    for (int k = 0; k < PB / 64; ++k)
+      tma_load(sX + s * G::kXBytes + k * G::kBlock, &tm_x, x_bar + 8 * s,
+               64 * k, h0 + g, c * L, b);
+  };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(bc_bar, 1);
+    for (int s = 0; s < kStages; ++s) mbar_init(x_bar + 8 * s, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bc_bar, 2 * G::kCBytes);
+#pragma unroll
+    for (int k = 0; k < NB / 64; ++k) {
+      tma_load(sC + k * G::kBlock, &tm_c, bc_bar, 64 * k, c * L, b);
+      tma_load(sB + k * G::kBlock, &tm_b, bc_bar, 64 * k, c * L, b);
+    }
+    load_x(0);
+  }
+  __syncthreads();
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int wg = tid / 128;                     // rows i 64 wg .. 64 wg + 63
+  const int r_a = 64 * wg + 16 * (warp % 4) + lane / 4;   // this thread's rows
+  const int r_b = r_a + 8;
+  const int col = 2 * (lane % 4);               // + 8 j (+ 1)
+
+  // cs and dt of the block's heads, then dte = dt exp(cs_end - cs)
+  for (int e = tid; e < nh * L; e += G::kThreads) {
+    const int l = e / nh, g = e - l * nh;       // neighbours read neighbouring heads
+    const size_t i = (row0 + l) * H + h0 + g;
+    sCs[g * L + l] = cs[i];
+    sDt[g * L + l] = dt[i];
+  }
+  __syncthreads();
+  for (int e = tid; e < nh * L; e += G::kThreads)
+    sDte[e] = sDt[e] * __expf(sCs[e / L * L + L - 1] - sCs[e]);
+  // (the barrier before the first head's Xd orders these for every thread)
+
+  // C Bᵀ once for all heads: key tiles kt <= wg of this warpgroup's rows
+  float cb[G::kWG][32];
+  mbar_wait(bc_bar, 0);
+#pragma unroll
+  for (int kt = 0; kt < G::kWG; ++kt) fence_regs(cb[kt]);
+  wgmma_fence();
+#pragma unroll
+  for (int kt = 0; kt < G::kWG; ++kt) {
+    if (kt > wg) continue;
+    for (int ks = 0; ks < N / 16; ++ks) {
+      const uint32_t k_off = ks / 4 * G::kBlock + 32 * (ks % 4);
+      wgmma_ss_n64(cb[kt], make_desc(sC + k_off + 64 * wg * 128, 16, 1024, 1),
+                   make_desc(sB + k_off + 64 * kt * 128, 16, 1024, 1), ks > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int kt = 0; kt < G::kWG; ++kt) fence_regs(cb[kt]);
+
+  const float kNegInf = -__int_as_float(0x7f800000);
+  for (int g = 0; g < nh; ++g) {
+    const int s = g % kStages, h = h0 + g;
+    const float* cs_h = sCs + g * L;
+    const float* dt_h = sDt + g * L;
+    const float* dte_h = sDte + g * L;
+    // every thread is done with head g - 1: its X stage, read by the
+    // products and by Xd, takes head g + 1, and Xd may be rewritten
+    __syncthreads();
+    if (tid == 0 && g + 1 < nh) load_x(g + 1);
+    mbar_wait(x_bar + 8 * s, (g / kStages) & 1);
+    const uint32_t x_tile = sX + s * G::kXBytes;
+
+    // 1. Xd = X o dte as bf16 hi + lo in X's layout
+    for (int e = tid; e < L * (PB / 8); e += G::kThreads) {
+      const int j = e / (PB / 8), k = e % (PB / 8);
+      const uint32_t off = k / 8 * G::kBlock + j * 128 + ((k % 8 ^ j % 8) << 4);
+      float v[8];
+      widen8(*reinterpret_cast<const uint4*>(gbase + (x_tile - base) + off), v);
+      const float d = dte_h[j];
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint2 p = split_bf16(v[2 * i] * d, v[2 * i + 1] * d);
+        hi[i] = p.x;
+        lo[i] = p.y;
+      }
+      *reinterpret_cast<uint4*>(gbase + (sXhi - base) + off) =
+          make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      *reinterpret_cast<uint4*>(gbase + (sXlo - base) + off) =
+          make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    }
+    fence_proxy_async();
+
+    // 2. y rows of this warpgroup: W on the C Bᵀ fragment, split, and
+    //    y = W_hi X + W_lo X over key tiles kt <= wg
+    float acc[PB / 2];
+#pragma unroll
+    for (int i = 0; i < PB / 2; ++i) acc[i] = 0.f;
+    const float cs_a = cs_h[r_a], cs_b = cs_h[r_b];
+    uint32_t w_hi[G::kWG][4][4], w_lo[G::kWG][4][4];
+#pragma unroll
+    for (int kt = 0; kt < G::kWG; ++kt) {
+      if (kt > wg) continue;
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int j = 64 * kt + 8 * (e / 4) + col;
+        const bool upper = e % 4 < 2;
+        const int i = upper ? r_a : r_b;
+        const float cs_i = upper ? cs_a : cs_b;
+        float w[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float arg = j + u <= i ? cs_i - cs_h[j + u] : kNegInf;
+          w[u] = cb[kt][e + u] * __expf(arg) * dt_h[j + u];
+        }
+        const uint2 p = split_bf16(w[0], w[1]);
+        w_hi[kt][e / 8][e % 8 / 2] = p.x;
+        w_lo[kt][e / 8][e % 8 / 2] = p.y;
+      }
+      // every fragment is formed before the fence, not sunk between wgmmas
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(w_hi[kt][kk]);
+        fence_regs(w_lo[kt][kk]);
+      }
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kt = 0; kt < G::kWG; ++kt) {
+      if (kt > wg) continue;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = make_desc(x_tile + (64 * kt + 16 * kk) * 128, G::kBlock, 1024, 1);
+        wgmma_rs<PB>(acc, w_hi[kt][kk], dx);
+        wgmma_rs<PB>(acc, w_lo[kt][kk], dx);
+      }
+    }
+    wgmma_commit();
+
+    // 3. the state's 64-row tiles of n this warpgroup owns at this head,
+    //    state = Bᵀ Xd_hi + Bᵀ Xd_lo; y is stored while the first runs
+    __syncthreads();                            // every thread's Xd is written
+    const size_t cell = (static_cast<size_t>(b) * (S / L) + c) * H + h;
+    bool y_done = false;
+    auto finish_y = [&]() {
+      fence_regs(acc);
+      store_tile<PB>(acc, y + ((row0 + 64 * wg) * H + h) * P,
+                     static_cast<size_t>(H) * P, 64, P);
+      y_done = true;
+    };
+#pragma unroll
+    for (int t = 0; t < NB / 64; ++t) {
+      if ((t + g) % G::kWG != wg) continue;
+      float sacc[PB / 2];
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < L / 16; ++ks) {
+        const uint64_t db = make_desc(sB + t * G::kBlock + 16 * ks * 128, G::kBlock, 1024, 1);
+        wgmma_ss_tt<PB>(sacc, db,
+                        make_desc(sXhi + 16 * ks * 128, G::kBlock, 1024, 1), ks > 0);
+        wgmma_ss_tt<PB>(sacc, db,
+                        make_desc(sXlo + 16 * ks * 128, G::kBlock, 1024, 1), 1);
+      }
+      wgmma_commit();
+      if (!y_done) {
+        wgmma_wait<1>();
+        finish_y();
+      }
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      store_tile<PB>(sacc, st + (cell * N + 64 * t) * P, P, N - 64 * t, P);
+    }
+    if (!y_done) {
+      wgmma_wait<0>();
+      finish_y();
+    }
+  }
+}
+
+template <int L, int NB, int PB>
+int launch(const void* x, const void* dt, const void* cs, const void* B,
+           const void* C, void* y, void* st, int batch, int S, int H, int P,
+           int N, int group, cudaStream_t stream) {
+  using G = Geom<L, NB, PB>;
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_chunk_tc<L, NB, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  // x: (P, H, S, batch) innermost first, boxes of (64, 1 head, L rows, 1);
+  // B, C: (N, S, batch), boxes of (64, L rows, 1). Columns past P or N
+  // read as zeros.
+  const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(P), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t x_strides[3] = {2ull * P, 2ull * P * H, 2ull * P * H * S};
+  const cuuint32_t x_box[4] = {64u, 1u, static_cast<cuuint32_t>(L), 1u};
+  const cuuint64_t bc_dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(S),
+                                 static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bc_strides[2] = {2ull * N, 2ull * N * S};
+  const cuuint32_t bc_box[3] = {64u, static_cast<cuuint32_t>(L), 1u};
+  CUtensorMap tm_x, tm_b, tm_c;
+  if (!encode_bf16(&tm_x, x, 4, x_dims, x_strides, x_box)
+      || !encode_bf16(&tm_b, B, 3, bc_dims, bc_strides, bc_box)
+      || !encode_bf16(&tm_c, C, 3, bc_dims, bc_strides, bc_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((H + group - 1) / group, S / L, batch);
+  ssd_chunk_tc<L, NB, PB><<<grid, G::kThreads, G::kSmem, stream>>>(
+      tm_x, tm_b, tm_c, static_cast<const float*>(dt), static_cast<const float*>(cs),
+      static_cast<float*>(y), static_cast<float*>(st), S, H, P, N, group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N and P pad to 64 or 128
+template <int L>
+int launch_at(const void* x, const void* dt, const void* cs, const void* B,
+              const void* C, void* y, void* st, int batch, int S, int H,
+              int P, int N, int group, cudaStream_t stream) {
+  if (N > 64)
+    return P > 64 ? launch<L, 128, 128>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, stream)
+                  : launch<L, 128, 64>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, stream);
+  return P > 64 ? launch<L, 64, 128>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, stream)
+                : launch<L, 64, 64>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, stream);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
 
-// x: (batch, S, H, P); B, C: (batch, S, N), all fp32 (is_bf16 = 0) or
-// bf16 (is_bf16 = 1); dt, cs: (batch, S, H) fp32; y: (batch, S, H, P)
-// fp32; st: (batch, S / L, H, N, P) fp32. All contiguous; S % L == 0;
-// L, N, P multiples of 4, at most 128. Returns the launch's cudaError_t
-// (0 = launched).
+// x: (batch, S, H, P); B, C: (batch, S, N); dt, cs: (batch, S, H) fp32;
+// y: (batch, S, H, P) fp32; st: (batch, S / L, H, N, P) fp32. All
+// contiguous; S % L == 0. Each returns the launch's cudaError_t (0 =
+// launched).
+
+// The CUDA-core kernel: x, B, C all fp32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1); L, N, P multiples of 4, at most 128.
 int ssd_chunk_fwd(const void* x, const void* dt, const void* cs,
                   const void* B, const void* C, void* y, void* st, int batch,
                   int S, int H, int P, int N, int L, int is_bf16,
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch<__nv_bfloat16>(x, dt, cs, B, C, y, st, batch, S, H, P, N, L, s)
-      : launch<float>(x, dt, cs, B, C, y, st, batch, S, H, P, N, L, s);
+      ? simt::launch<__nv_bfloat16>(x, dt, cs, B, C, y, st, batch, S, H, P, N, L, s)
+      : simt::launch<float>(x, dt, cs, B, C, y, st, batch, S, H, P, N, L, s);
+}
+
+// The tensor-core kernel: x, B, C bf16, 16-byte aligned; L 64 or 128; N
+// and P multiples of 16, at most 128; `group` heads a block (1 to 8).
+int ssd_chunk_fwd_tc(const void* x, const void* dt, const void* cs,
+                     const void* B, const void* C, void* y, void* st,
+                     int batch, int S, int H, int P, int N, int L, int group,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < 1 || group > tc::kMaxGroup || N % 16 || P % 16 || N > 128 || P > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (L) {
+    case 64: return tc::launch_at<64>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, s);
+    case 128: return tc::launch_at<128>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* kernel_error_string(int code) {

@@ -5,8 +5,13 @@ Twin of the JAX package's ``kernels/ssd/ops.py``: ``ssd`` pads S to a
 multiple of the chunk, takes the within-chunk cumsum of dt·a, runs the
 intra-chunk kernel (``ssd_chunk``, the twin of ``ssd_chunk_pallas``), then
 scans the chunk boundary states and adds the inter-chunk output. There is
-no off-shape fallback: on a CUDA tensor ``ssd_chunk`` launches the kernel
-or raises.
+no off-shape fallback: on a CUDA tensor ``ssd_chunk`` launches a kernel or
+raises.
+
+``csrc/ssd.cu`` holds two kernels, and ``route`` picks one by dtype and
+shape: bf16 at the tensor-core shapes runs the tensor-core kernel (C Bᵀ
+once per block of ``head_group`` heads, products as split-bf16 wgmma);
+fp32, and every other shape, the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -23,15 +28,47 @@ from .ref import ssd_chunk_ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 MAX_DIM = 128     # L, N and P each at most this, and a multiple of 4
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+TC_CHUNKS = (64, 128)   # the tensor-core kernel's chunk lengths
+MAX_GROUP = 8           # heads a tensor-core block takes at most
+# route -> the library's launch function
+_ENTRY = {"tc": "ssd_chunk_fwd_tc", "simt": "ssd_chunk_fwd"}
+
+
+def route(dtype: torch.dtype, chunk: int, d_state: int, head_dim: int) -> str:
+    """Which kernel takes a call: ``"tc"``, the tensor-core kernel, for bf16
+    at ``chunk`` 64 or 128 with ``d_state`` and ``head_dim`` multiples of
+    16 (the serving shape (128, 128, 64) and jamba's (128, 16, 64));
+    ``"simt"``, the CUDA-core kernel, for everything else. The tensor cores
+    cannot hold the 1e-4 tolerance from fp32 input without 3xTF32."""
+    if (dtype == torch.bfloat16 and chunk in TC_CHUNKS
+            and d_state % 16 == 0 and head_dim % 16 == 0):
+        return "tc"
+    return "simt"
+
+
+def head_group(batch: int, n_chunks: int, heads: int, n_sms: int) -> int:
+    """Heads per tensor-core block, which computes C Bᵀ once for all of
+    them: the fewest that keep the grid of ``batch · n_chunks ·
+    ceil(heads / group)`` blocks within one wave of ``n_sms`` (one block
+    per SM), at most ``MAX_GROUP``. Serving (4, 4, 24) on 132 SMs: 3."""
+    per_cell = max(1, min(heads, n_sms // max(1, batch * n_chunks)))
+    return min(MAX_GROUP, -(-heads // per_cell))
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
-    lib.ssd_chunk_fwd.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.ssd_chunk_fwd.restype = ctypes.c_int
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _n_sms(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
@@ -77,14 +114,23 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
                          device=x.device)
     if y.numel() == 0:
         return y, states
+    kind = route(x.dtype, L, N, P)
+    if kind == "tc":   # the last int: heads per block
+        if any(t.data_ptr() % 16 for t in (x, B, C)):
+            raise ValueError("ssd_chunk: x, B, C must be 16-byte aligned")
+        last_arg = head_group(bsz, S // L, H, _n_sms(x.device.index))
+    else:              # the last int: is_bf16
+        last_arg = _DTYPES[x.dtype]
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.ssd_chunk_fwd(
+    code = getattr(lib, _ENTRY[kind])(
         x.data_ptr(), dt.data_ptr(), cs.data_ptr(), B.data_ptr(),
         C.data_ptr(), y.data_ptr(), states.data_ptr(), bsz, S, H, P, N, L,
-        _DTYPES[x.dtype], stream)
-    _build.check(lib, code, "ssd_chunk_fwd")
+        last_arg, stream)
+    _build.check(lib, code, _ENTRY[kind])
     ssd.launches += 1
+    if kind == "tc":
+        ssd.launches_tc += 1
     return y, states
 
 
@@ -135,4 +181,5 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     return y[:, :S_orig], h
 
 
-ssd.launches = 0   # chunk-kernel launches (in ssd_chunk) since last set to 0
+ssd.launches = 0      # chunk-kernel launches (in ssd_chunk) since last set to 0
+ssd.launches_tc = 0   # of those, the bf16 tensor-core kernel's

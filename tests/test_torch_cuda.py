@@ -57,6 +57,37 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
                                atol=RMSNORM_TOL, rtol=0)
 
 
+# (rows, D): each serving D at decode (4 rows: a thread per 16-byte
+# vector) and prefill (2,048 rows: a thread per two vectors); then shapes
+# that leave each branch ragged: a part-filled last warp, a part-filled
+# second vector, several vectors a thread, and rows wider than the 16
+# vectors a thread keeps in registers (the re-read tail)
+RMSNORM_LAYOUT_CASES = [
+    (4, 768), (4, 1536), (4, 2048), (2048, 768), (2048, 1536), (2048, 2048),
+    (3, 776), (2049, 776), (600, 12288), (300, 12296), (5, 40000), (4, 72),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMSNORM_LAYOUT_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_kernel_matches_plain_at_each_block_size(cuda, shape, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda).to(dt)
+    w = torch.randn(shape[-1:], generator=g, device=cuda)
+    before = trn_ops.rmsnorm.launches
+    out = trn_ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert trn_ops.rmsnorm.launches == before + 1
+    # against the fp32 result: fp32 differs only in summation order, and a
+    # bf16 output is that value rounded, within half a bf16 ulp (2^-8
+    # relative) of it, whatever its magnitude
+    exp = trn_ref.rmsnorm_ref(x.float(), w)
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -8 + 1e-5
+    torch.testing.assert_close(out.float(), exp, atol=1e-5, rtol=rtol)
+
+
 @pytest.mark.cuda
 def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
     w = torch.ones(12, device=cuda)
@@ -199,6 +230,72 @@ def test_ssd_kernel_matches_plain(cuda, case, dtype):
     assert tssd_ops.ssd.launches == before + 1
     assert y.dtype == st.dtype == torch.float32
     assert st.shape == (b, S // L, H, N, P)
+    _assert_ssd_close(y, st, *tssd_ref.ssd_chunk_ref(x, dt, cs, Bm, Cm, chunk=L))
+
+
+# shapes only the tensor-core kernel's padding and head groups reach:
+# N and P padded to 64 or 128 (48, 32, 80), L = 64 with P = 128, and head
+# groups that leave a ragged last group (10 heads in groups of 3) or take
+# 5 heads a block
+SSD_TC_CASES = [
+    (2, 256, 7, 32, 48, 128),
+    (1, 128, 5, 128, 64, 64),
+    (4, 1024, 10, 64, 128, 128),
+    (8, 1024, 5, 128, 32, 64),
+    (2, 128, 3, 80, 96, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+def test_ssd_tensor_core_kernel_matches_plain_padded_and_grouped(cuda, case):
+    b, S, H, P, N, L = case
+    assert tssd_ops.route(torch.bfloat16, L, N, P) == "tc"
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x, dt, a, Bm, Cm = _ssd_inputs(case, "bfloat16", g, cuda)
+    cs = torch.cumsum((dt * a).reshape(b, S // L, L, H), 2).reshape(b, S, H)
+    before = tssd_ops.ssd.launches_tc
+    y, st = tssd_ops.ssd_chunk(x, dt, cs, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert tssd_ops.ssd.launches_tc == before + 1
+    _assert_ssd_close(y, st, *tssd_ref.ssd_chunk_ref(x, dt, cs, Bm, Cm, chunk=L))
+
+
+@pytest.mark.cuda
+def test_ssd_serving_and_jamba_shapes_run_on_the_tensor_core_kernel(cuda):
+    """bf16 at the mamba2 serving shape and at jamba's (N = 16) takes the
+    tensor-core kernel; fp32 at the serving shape does not."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for case, dtype, tc in [((4, 512, 24, 64, 128, 128), "bfloat16", True),
+                            ((1, 256, 4, 64, 16, 128), "bfloat16", True),
+                            ((4, 512, 24, 64, 128, 128), "float32", False)]:
+        b, S, H, P, N, L = case
+        x, dt, a, Bm, Cm = _ssd_inputs(case, dtype, g, cuda)
+        cs = torch.cumsum((dt * a).reshape(b, S // L, L, H), 2).reshape(b, S, H)
+        before = (tssd_ops.ssd.launches, tssd_ops.ssd.launches_tc)
+        tssd_ops.ssd_chunk(x, dt, cs, Bm, Cm, chunk=L)
+        torch.cuda.synchronize()
+        assert (tssd_ops.ssd.launches, tssd_ops.ssd.launches_tc) == (
+            before[0] + 1, before[1] + int(tc)), (case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssd_kernel_never_exponentiates_the_masked_half(cuda, dtype):
+    """a = -8 and dt ~ 1.5: cs falls by ~1,500 over a chunk, so
+    exp(cs_i - cs_j) is +inf for every j > i far from the diagonal; a
+    kernel that formed it and multiplied by the causal 0 would give NaN."""
+    case = (2, 256, 6, 64, 128, 128)
+    b, S, H, P, N, L = case
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, dt, _, Bm, Cm = _ssd_inputs(case, dtype, g, cuda)
+    dt = dt + 1.0
+    a = torch.full((H,), -8.0, device=cuda)
+    cs = torch.cumsum((dt * a).reshape(b, S // L, L, H), 2).reshape(b, S, H)
+    assert float(cs.reshape(b, S // L, L, H)[:, :, -1].max()) < -1000
+    y, st = tssd_ops.ssd_chunk(x, dt, cs, Bm, Cm, chunk=L)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
     _assert_ssd_close(y, st, *tssd_ref.ssd_chunk_ref(x, dt, cs, Bm, Cm, chunk=L))
 
 

@@ -71,6 +71,40 @@ def test_rmsnorm_plain_matches_reference(shape, dtype):
         np.testing.assert_allclose(_np(out), _np(exp), atol=RMSNORM_TOL)
 
 
+# (rows, D, bytes per element) -> threads of the RMSNorm kernel's block per
+# row on a 132-SM card: one per 16-byte vector under 2 rows an SM (decode:
+# 4 rows of D 768/1536/2048 bf16 -> 96/192/256; fp32 twice that), one per
+# two vectors from 264 rows on (prefill), whole warps, at most 512
+RMSNORM_PLANS = [
+    ((4, 768, 2), 96), ((4, 1536, 2), 192), ((4, 2048, 2), 256),
+    ((4, 1536, 4), 384), ((4, 2048, 4), 512), ((1, 8, 4), 32),
+    ((263, 2048, 2), 256), ((264, 2048, 2), 128),
+    ((2048, 2048, 2), 128), ((2048, 1536, 4), 192), ((2048, 768, 2), 64),
+    ((100_000, 2048, 2), 128), ((4, 40_000, 2), 512), ((2048, 40_000, 4), 512),
+]
+
+
+@pytest.mark.parametrize("case", RMSNORM_PLANS, ids=str)
+def test_rmsnorm_block_fits_the_row_count(case):
+    (n_rows, d, elem_bytes), want = case
+    assert trn_ops.plan(n_rows, d, elem_bytes, 132) == want
+
+
+def test_rmsnorm_plan_covers_every_vector_of_a_row():
+    """Whole warps, at most 512 threads, and at most two vectors a thread
+    wherever 512 threads can cover the row (wider rows hold up to 16 a
+    thread in registers and re-read the rest)."""
+    for n_rows in (1, 4, 7, 263, 264, 2048, 9001):
+        for d in (8, 96, 776, 2048, 12288, 40_000):
+            for elem_bytes in (2, 4):
+                threads = trn_ops.plan(n_rows, d, elem_bytes, 132)
+                vecs = d * elem_bytes // 16
+                assert threads % 32 == 0 and 32 <= threads <= trn_ops.MAX_THREADS
+                per_thread = 1 if n_rows < 264 else 2
+                assert threads * per_thread >= min(vecs, 512 * per_thread)
+                assert threads - 32 < -(-vecs // per_thread)
+
+
 # ------------------------------------------------------------------ flash
 @pytest.mark.parametrize("case", FLASH_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -153,6 +187,26 @@ def test_library_name_is_keyed_by_source_content(tmp_path):
     assert first.parent == _build.BUILD_DIR
     assert sorted(p.name for p in _build.sources()) == [
         "flash_attention.cu", "rmsnorm.cu", "ssd.cu"]
+
+
+def test_library_name_is_keyed_by_shared_headers(monkeypatch, tmp_path):
+    """A source that includes a header of ``include/`` is rebuilt when the
+    header changes: the header's content is part of the library's name."""
+    (tmp_path / "include").mkdir()
+    header = tmp_path / "include" / "common.cuh"
+    header.write_text("// one\n")
+    src = tmp_path / "k" / "csrc" / "k.cu"
+    src.parent.mkdir(parents=True)
+    src.write_text('#include "../../include/common.cuh"\n')
+    monkeypatch.setattr(_build, "KERNELS_DIR", tmp_path)
+    assert _build.headers() == [header]
+    first = _build.library_path(src)
+    header.write_text("// two\n")
+    assert _build.library_path(src) != first
+    header.write_text("// one\n")
+    assert _build.library_path(src) == first
+    monkeypatch.undo()
+    assert [p.name for p in _build.headers()] == ["hopper.cuh"]
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

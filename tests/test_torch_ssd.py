@@ -132,6 +132,88 @@ def test_ssd_chunk_plain_never_multiplies_the_overflowing_half():
     assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all())
 
 
+# ------------------------------------------------------------------ routes
+@pytest.mark.parametrize("case", [
+    # dtype, chunk, d_state, head_dim -> kernel
+    ("bfloat16", 128, 128, 64, "tc"),    # mamba2-130m serving
+    ("bfloat16", 128, 16, 64, "tc"),     # jamba's SSMCfg
+    ("bfloat16", 64, 48, 32, "tc"),
+    ("float32", 128, 128, 64, "simt"),   # the tensor cores cannot hold 1e-4
+    ("bfloat16", 32, 16, 32, "simt"),    # chunk not 64 or 128
+    ("bfloat16", 16, 32, 16, "simt"),
+    ("bfloat16", 128, 8, 64, "simt"),    # d_state not a multiple of 16
+    ("bfloat16", 128, 128, 8, "simt"),   # head_dim not a multiple of 16
+    ("bfloat16", 8, 16, 16, "simt"),     # the reduced mamba2 config
+], ids=str)
+def test_ssd_route_picks_the_tensor_core_kernel_by_dtype_and_shape(case):
+    dtype, chunk, n, p, want = case
+    assert tssd_ops.route(getattr(torch, dtype), chunk, n, p) == want
+
+
+@pytest.mark.parametrize("case", [
+    # batch, chunks, heads, SMs -> heads per block
+    ((4, 4, 24, 132), 3),      # serving: 16 cells x 8 groups = 128 blocks
+    ((1, 2, 4, 132), 1),       # few cells: a block per head
+    ((4, 8, 10, 132), 3),      # 32 cells x 4 groups, the last of 1 head
+    ((8, 16, 5, 132), 5),      # 128 cells: one block a cell
+    ((50, 10, 24, 132), 8),    # more cells than SMs: at most 8 a block
+], ids=str)
+def test_ssd_head_group_fills_about_one_wave(case):
+    (b, nc, h, sms), want = case
+    g = tssd_ops.head_group(b, nc, h, sms)
+    assert g == want and 1 <= g <= tssd_ops.MAX_GROUP
+    blocks = b * nc * -(-h // g)
+    assert blocks <= sms or g == min(h, tssd_ops.MAX_GROUP)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunk_plain_path_counts_no_kernel_launch(dtype):
+    """On CPU tensors the wrapper takes the plain version: neither count
+    moves, whichever kernel the dtype and shape would route to."""
+    case = (1, 256, 4, 64, 16, 128)
+    (_, xt), (_, dtt), (_, at), (_, Bt), (_, Ct), _ = _ssd_inputs(case, dtype=dtype)
+    cs = torch.cumsum((dtt * at).reshape(1, 2, 128, 4), 2).reshape(1, 256, 4)
+    before = (tssd_ops.ssd.launches, tssd_ops.ssd.launches_tc)
+    tssd_ops.ssd_chunk(xt, dtt, cs, Bt, Ct, chunk=128)
+    assert (tssd_ops.ssd.launches, tssd_ops.ssd.launches_tc) == before
+
+
+def test_split_bf16_products_hold_the_reference_tolerance():
+    """The tensor-core kernel's arithmetic in plain torch at jamba's widths:
+    bf16 x, B, C; C Bᵀ exact in fp32; W and X ∘ dte split into bf16 hi +
+    lo halves, each product exact in fp32. It holds the reference's 1e-4
+    tolerance, which plain bf16 W does not."""
+    case = (1, 256, 4, 64, 16, 128)
+    b, S, H, P, N, L = case
+    (_, xt), (_, dtt), (_, at), (_, Bt), (_, Ct), _ = _ssd_inputs(
+        case, seed=3, dtype="bfloat16")
+    cs = torch.cumsum((dtt * at).reshape(b, S // L, L, H), 2).reshape(b, S, H)
+    y_exp, st_exp = tssd_ref.ssd_chunk_ref(xt, dtt, cs, Bt, Ct, chunk=L)
+
+    def split(t):
+        hi = t.bfloat16().float()
+        return hi, (t - hi).bfloat16().float()
+
+    nc = S // L
+    x = xt.float().reshape(b, nc, L, H, P)
+    dtc, csc = dtt.reshape(b, nc, L, H), cs.reshape(b, nc, L, H)
+    Bc, Cc = Bt.float().reshape(b, nc, L, N), Ct.float().reshape(b, nc, L, N)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    causal = torch.ones(L, L, dtype=torch.bool).tril()[..., None]
+    arg = torch.where(causal, csc[:, :, :, None] - csc[:, :, None], -torch.inf)
+    w = cb * torch.exp(arg) * dtc[:, :, None]
+    dte = dtc * torch.exp(csc[:, :, -1:] - csc)
+    y, st = 0, 0
+    for part in split(w):
+        y = y + torch.einsum("bcijh,bcjhp->bcihp", part, x)
+    for part in split(x * dte[..., None]):
+        st = st + torch.einsum("bcln,bclhp->bchnp", Bc, part)
+    _assert_y_h(y.reshape(b, S, H, P), st, y_exp, st_exp)
+    y_plain = torch.einsum("bcijh,bcjhp->bcihp", w.bfloat16().float(), x)
+    assert float((y_plain.reshape(b, S, H, P) - y_exp).abs().max()) > \
+        1e-4 * float(y_exp.abs().max())
+
+
 @pytest.mark.parametrize("case", SSD_CASES)
 def test_ssd_matches_reference_ops_and_sequential_oracle(case):
     (xj, xt), (dtj, dtt), (aj, at), (Bj, Bt), (Cj, Ct), _ = _ssd_inputs(case)
