@@ -23,7 +23,20 @@ Phases (any failure exits non-zero; none is caught and passed over):
   4b. the same for mamba2-130m (the ssm family: the SSD chunk kernel in
      prefill, every launch on its bf16 tensor-core kernel, RMSNorm in every
      forward), with its own counts and plain path;
-  5. print one ``{"kernels": [...]}`` line, then the result line
+  5. one Helix session on the card (``repro_torch.core``): a workflow
+     params → prompts → prefill → decode serving internlm2-1.8b at full
+     width and depth, run under ``Policy.ALWAYS`` (cold, a ``gen_tokens``
+     edit, a restart on the same workdir) and under ``Policy.OPT`` (two
+     iterations). Each iteration's counts are set to 0 just before it and
+     read just after, and must match the states the planner chose (a
+     reused prefill launches no flash kernel); its tokens must equal a
+     direct prefill + decode on the same weights; every stored entry must
+     reload from the disk tier onto the card bitwise equal to what its
+     node computed. Prints times, per-tier bytes and seconds, and the
+     device → host offload and disk → card load rates beside the host
+     link that bounds them (``nvidia-smi``'s PCIe generation and width,
+     and the measured rate of a pinned 1 GiB copy each way);
+  6. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -33,8 +46,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -57,6 +72,13 @@ RMSNORM_TOL = 2e-2
 # own tolerance (tests/test_kernels.py), relative to max |y| and to
 # max(max |h|, 1), holds both kernels for both input types.
 SSD_TOL = 1e-4
+# phase 5: the session's KV cache holds the prompt and up to 64 generated
+# tokens, so every iteration's prefill and decode see the same shapes
+# whatever gen_tokens is; iterations decode 32, then 48 tokens.
+SESSION_MAX_LEN = PROMPT + 64
+SESSION_GEN = (32, 48)
+# the memory tier holds params (3.78 GB) and the rest of the workflow
+SESSION_MEM_BUDGET = 8e9
 # The serving run vs the plain path, max |diff| / max |logit|: 24 layers
 # with a bf16 residual stream (48 bf16 adds) turn one-ulp rounding
 # differences into ~3% on the logits; two plain paths that differ only in
@@ -485,6 +507,335 @@ def serve_ssm(dev):
         "ssd_tc": cfg.num_layers})
 
 
+# ------------------------------------------------------------------ phase 5
+def serve_node_configs(cfg, gen_tokens, *, batch=BATCH, prompt=PROMPT,
+                       max_len=SESSION_MAX_LEN, seed=SEED) -> dict:
+    """The config of each node of the serving workflow: plain data, which
+    the node's signature hashes, so a twin workflow built with the same
+    configs in another package signs the same."""
+    return {"params": {"arch": cfg.name, "layers": cfg.num_layers,
+                       "d_model": cfg.d_model, "seed": seed},
+            "prompts": {"seed": seed, "batch": batch, "prompt": prompt,
+                        "vocab": cfg.vocab_size},
+            "prefill": {"max_len": max_len, "attn_impl": cfg.attn_impl},
+            "decode": {"gen_tokens": gen_tokens}}
+
+
+def greedy_decode(cfg, params, logits, cache, gen_tokens):
+    """``gen_tokens`` greedy tokens (the first from ``logits``) against
+    ``cache``, which is cloned first: ``decode_step`` writes the KV cache
+    in place, and ``cache`` is the prefill node's value, which the
+    executor and the store's memory tier hand out as it is."""
+    from repro_torch.train import steps
+    with torch.no_grad():
+        cache = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in cache.items()}
+        out = [logits.argmax(-1).to(torch.int32)[:, None]]
+        for _ in range(gen_tokens - 1):
+            logits, cache = steps.decode_step(cfg, params, out[-1], cache)
+            out.append(logits.argmax(-1).to(torch.int32)[:, None])
+    return {"tokens": torch.cat(out, 1), "last_logits": logits}
+
+
+def prefill_and_decode(cfg, params, tokens, gen_tokens,
+                       max_len=SESSION_MAX_LEN):
+    """The direct path, outside any session: prefill, then greedy decode."""
+    from repro_torch.train import steps
+    with torch.no_grad():
+        logits, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+                                           max_len=max_len)
+    return logits, cache, greedy_decode(cfg, params, logits, cache,
+                                        gen_tokens)
+
+
+def serve_workflow(cfg, init_params, gen_tokens, *, device, batch=BATCH,
+                   prompt=PROMPT, max_len=SESSION_MAX_LEN, seed=SEED,
+                   computed=None):
+    """The serving workflow: ``params`` (``init_params()``) and ``prompts``
+    (``synth.lm_tokens``) → ``prefill`` (last logits and the KV cache) →
+    ``decode`` (``gen_tokens`` greedy tokens), the output. With
+    ``computed``, each node that runs stores a clone of its value there,
+    taken as it returns, under its name."""
+    from repro_torch.core import Workflow
+    from repro_torch.core.tree import tree_map
+    from repro_torch.train import steps
+    conf = serve_node_configs(cfg, gen_tokens, batch=batch, prompt=prompt,
+                              max_len=max_len, seed=seed)
+
+    def keep(name, value):
+        if computed is not None:
+            computed[name] = tree_map(
+                lambda t: t.clone() if isinstance(t, torch.Tensor) else t,
+                value)
+        return value
+
+    def prompts():
+        return keep("prompts", torch.as_tensor(
+            synth_prompts(cfg, batch, prompt, seed)).to(device))
+
+    def prefill(params, tokens):
+        with torch.no_grad():
+            logits, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+                                               max_len=max_len)
+        return keep("prefill", {"logits": logits, "cache": cache})
+
+    def decode(params, pre):
+        return keep("decode", greedy_decode(cfg, params, pre["logits"],
+                                            pre["cache"], gen_tokens))
+
+    wf = Workflow(f"serve-{cfg.name}")
+    p = wf.source("params", lambda: keep("params", init_params()),
+                  config=conf["params"])
+    t = wf.source("prompts", prompts, config=conf["prompts"])
+    pre = wf.extractor("prefill", prefill, [p, t], config=conf["prefill"])
+    wf.output(wf.extractor("decode", decode, [p, pre],
+                           config=conf["decode"]))
+    return wf
+
+
+def same_bits(a, b) -> bool:
+    """Leaf for leaf, the same types and, for tensors, the same dtype,
+    shape and bits."""
+    from repro_torch.core.tree import tree_flatten
+    (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
+    if da != db:
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(
+                        x.reshape(-1).view(torch.uint8),
+                        y.to(x.device).reshape(-1).view(torch.uint8))):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _rate(nbytes, seconds):
+    return round(nbytes / seconds / 1e9, 3) if seconds > 0 else None
+
+
+def session_iteration(label, session, cfg, init, gen, dev, place, direct):
+    """One iteration of the serving workflow, with every launch count set
+    to 0 just before it and read just after. Checks the counts against the
+    states the planner chose and the tokens against the direct path;
+    prints the iteration's times, per-tier traffic and each node's costs
+    and OMP verdict. Returns (report, launches, computed values)."""
+    from repro_torch.core import State
+    computed = {}
+    wf = serve_workflow(cfg, init, gen, device=dev, computed=computed)
+    store = session.store
+    loads0 = {t: dict(v) for t, v in store.load_stats.items()}
+    writes0 = dict(store.write_stats)
+    mem0 = store.tier_status()["memory"]
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+    t0 = time.perf_counter()
+    rep = session.run(wf, load_shardings=place)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(wrapper, attr)
+                for name, (wrapper, attr) in counters.items()}
+    store.writer_drain()            # queued writes and device offloads land
+    drained = time.perf_counter() - t0
+
+    ex = rep.execution
+    states = ex.states
+    prefill_runs = int(states["prefill"] is State.COMPUTE)
+    forwards = prefill_runs + (gen - 1) * int(states["decode"] is State.COMPUTE)
+    expect = {"rmsnorm": (2 * cfg.num_layers + 1) * forwards,
+              "flash_attention": cfg.num_layers * prefill_runs,
+              "flash_attention_tc": cfg.num_layers * prefill_runs,
+              "ssd": 0, "ssd_tc": 0}
+    loads = {t: {k: v[k] - loads0[t][k] for k in ("hits", "bytes", "seconds")}
+             for t, v in store.load_stats.items()}
+    writes = {k: store.write_stats[k] - writes0[k] for k in writes0}
+    mem = store.tier_status()["memory"]
+    offload = {"entries": mem["offloads"] - mem0["offloads"],
+               "bytes": mem["offload_bytes"] - mem0["offload_bytes"],
+               "seconds": mem["offload_seconds"] - mem0["offload_seconds"]}
+    print(f"session {label}: gen_tokens {gen}; wall {wall:.3f} s "
+          f"({drained:.3f} s with the writer drained); computed "
+          f"{ex.n_computed}, loaded {ex.n_loaded}, pruned {ex.n_pruned}; "
+          f"mat_seconds {ex.mat_seconds:.3f}; launches {launches}")
+    print(f"session {label}: loads by tier {json.dumps(loads)}; disk writes "
+          f"{json.dumps(writes)}; device->host offload {json.dumps(offload)} "
+          f"({_rate(offload['bytes'], offload['seconds'])} GB/s); "
+          f"disk->cuda load {_rate(loads['local']['bytes'], loads['local']['seconds'])}"
+          f" GB/s; memory->cuda {_rate(loads['memory']['bytes'], loads['memory']['seconds'])}"
+          f" GB/s")
+    for n in ("params", "prompts", "prefill", "decode"):
+        verdict = (f"materialized ({ex.materialized[n]})"
+                   if n in ex.materialized else
+                   f"not materialized ({ex.skipped_mat.get(n, 'no decision')})")
+        lc = rep.load_cost.get(n)
+        print(f"  {n}: {states[n].name}; runtime "
+              f"{ex.runtime.get(n, 0.0):.6f} s; planner c {rep.compute_cost[n]:.6f}"
+              f" s, l {'-' if lc is None else f'{lc:.6f} s'}; OMP {verdict}")
+
+    require(launches == expect, (label, launches, expect))
+    tokens = rep.outputs["decode"]["tokens"]
+    require(tokens.is_cuda and tuple(tokens.shape) == (BATCH, gen),
+            (label, tokens.device, tokens.shape))
+    require(torch.equal(tokens, direct[gen]), (label, "tokens differ from "
+                                               "the direct path"))
+    return rep, launches, computed
+
+
+def session_path(dev):
+    """Phase 5: Helix sessions serving internlm2-1.8b at full width and
+    depth. Returns the launch counts summed over its iterations."""
+    from repro_torch import configs
+    from repro_torch.core import (EngineConfig, IterativeSession, Policy,
+                                  Store, StoreConfig)
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
+
+    def init():
+        return registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             dev)
+
+    link = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"host link (PCIe gen, width current; gen, width max): {link}; "
+          f"pinned copies of 1 GiB: {json.dumps(link_rates(dev))} GB/s")
+    # every tensor leaf of every node's entry is placed on the card
+    place = {n: (lambda i, shape, dtype: dev)
+             for n in ("params", "prompts", "prefill", "decode")}
+    total = {k: 0 for k in launch_counters()}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="session-", dir=os.path.join(ROOT, "build"))
+    try:
+        # the direct path on the same weights, once per gen_tokens
+        params = init()
+        prompts = torch.as_tensor(synth_prompts(cfg)).to(dev)
+        direct = {g: prefill_and_decode(cfg, params, prompts, g)[2]["tokens"]
+                  for g in SESSION_GEN}
+        require(torch.equal(direct[SESSION_GEN[1]][:, :SESSION_GEN[0]],
+                            direct[SESSION_GEN[0]]),
+                "the direct path's greedy tokens depend on gen_tokens")
+        del params
+
+        a_dir = os.path.join(workdir, "always")
+        storage = StoreConfig(mem_budget_bytes=SESSION_MEM_BUDGET)
+        always = EngineConfig(policy=Policy.ALWAYS)
+        sess = IterativeSession(a_dir, engine=always, storage=storage)
+        by_sig = {}                 # signature -> the value its node computed
+        runs = []
+        for label, gen, restart in (("A1 cold", SESSION_GEN[0], False),
+                                    ("A2 gen_tokens edit", SESSION_GEN[1], False),
+                                    ("A3 restart", SESSION_GEN[1], True)):
+            if restart:
+                sess = IterativeSession(a_dir, engine=always, storage=storage)
+            rep, launches, computed = session_iteration(
+                label, sess, cfg, init, gen, dev, place, direct)
+            runs.append(rep)
+            for name, value in computed.items():
+                by_sig[rep.sigs[name]] = value
+            for k in total:
+                total[k] += launches[k]
+            if label.startswith("A2"):
+                t1 = runs[0].outputs["decode"]["tokens"]
+                t2 = rep.outputs["decode"]["tokens"]
+                require(torch.equal(t2[:, :SESSION_GEN[0] - 1],
+                                    t1[:, :SESSION_GEN[0] - 1]),
+                        "iteration 2's first 31 tokens differ from iteration 1's")
+                # the decode node cloned the cache: the stored prefill
+                # entry is the value the prefill node computed
+                pre_sig = runs[0].sigs["prefill"]
+                value, _ = Store(os.path.join(a_dir, "store")).load(
+                    pre_sig, sharding_for_leaf=lambda i, s, d: dev)
+                require(same_bits(value, by_sig[pre_sig]),
+                        "the stored prefill entry changed after iteration 2")
+        # every stored entry, from the disk tier onto the card, through a
+        # memory tier that then offloads the card's copy to pinned host
+        # memory on the writer thread
+        disk = Store(os.path.join(a_dir, "store"),
+                     mem_budget_bytes=SESSION_MEM_BUDGET)
+        entries = disk.entries()
+        require(len(entries) >= 4, f"session A stored {len(entries)} entries")
+        for sig, meta in sorted(entries.items(), key=lambda kv: kv[1]["name"]):
+            t0 = time.perf_counter()
+            value, secs = disk.load(sig, sharding_for_leaf=lambda i, s, d: dev)
+            torch.cuda.synchronize()
+            on_card = all(t.is_cuda for t in tree_leaves(value)
+                          if isinstance(t, torch.Tensor))
+            equal = sig in by_sig and same_bits(value, by_sig[sig])
+            print(f"stored {meta['name']} ({sig[:12]}): {meta['nbytes']} B, "
+                  f"disk->cuda {time.perf_counter() - t0:.3f} s "
+                  f"({_rate(meta['nbytes'], secs)} GB/s); on the card: "
+                  f"{on_card}; bitwise equal to what its node computed: {equal}")
+            require(on_card and equal, ("stored entry", meta["name"], sig,
+                                        on_card, equal))
+        t0 = time.perf_counter()
+        disk.writer_drain()
+        mem = disk.tier_status()["memory"]
+        print(f"device->host offload of the reloaded entries: "
+              f"{mem['offloads']} entries, {mem['offload_bytes']} B in "
+              f"{mem['offload_seconds']:.3f} s on the writer thread "
+              f"({_rate(mem['offload_bytes'], mem['offload_seconds'])} GB/s; "
+              f"drain waited {time.perf_counter() - t0:.3f} s)")
+        require(mem["offloads"] == len(entries), mem)
+        for sig in entries:
+            # no placement: a hit goes back to the device it came from
+            value, _ = disk.load(sig)
+            require(all(t.is_cuda for t in tree_leaves(value)
+                        if isinstance(t, torch.Tensor)),
+                    ("a hit after the offload is not on the card", sig))
+            require(same_bits(value, by_sig[sig]),
+                    ("pinned snapshot placed on the card differs", sig))
+        del value, by_sig, runs, disk
+
+        # session B passes no load_shardings: loads return to the card,
+        # the device each value was computed on
+        b_dir = os.path.join(workdir, "opt")
+        sess = IterativeSession(b_dir, storage=storage)     # Policy.OPT
+        for label, gen in (("B1 cold", SESSION_GEN[0]),
+                           ("B2 gen_tokens edit", SESSION_GEN[1])):
+            _, launches, _ = session_iteration(label, sess, cfg, init, gen,
+                                               dev, None, direct)
+            for k in total:
+                total[k] += launches[k]
+        sess.store.writer_drain()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"session path launches: {total}")
+    return total
+
+
+def link_rates(dev, nbytes=1 << 30, n=5):
+    """GB/s of a pinned host buffer copied to the card and back (CUDA
+    events around ``n`` copies each way, after one warm-up copy): the
+    rate the host link gives the store's copies, which can go no faster."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    card = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    rates = {}
+    for name, dst, src in (("host->card", card, host),
+                           ("card->host", host, card)):
+        dst.copy_(src, non_blocking=True)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        rates[name] = round(n * nbytes / (start.elapsed_time(end) / 1e3) / 1e9, 3)
+    return rates
+
+
+def synth_prompts(cfg, batch=BATCH, prompt=PROMPT, seed=SEED):
+    """(batch, prompt) int32 prompts, as ``serve_path`` makes them."""
+    from repro_torch.data import synth
+    toks = synth.lm_tokens(seed, batch * prompt + 1, cfg.vocab_size)
+    return toks[:batch * prompt].reshape(batch, prompt)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -526,7 +877,8 @@ def main() -> int:
             "flash_attention": check_flash(dev, timer, peaks),
             "ssd": check_ssd(dev, timer, peaks)}
     del timer
-    by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev)}
+    by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
+               "helix-session": session_path(dev)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",

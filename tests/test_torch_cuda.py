@@ -11,6 +11,8 @@ summation order; a bf16 output may round one ulp apart (2^-8 relative).
 The SSD kernel computes in fp32 from either input type, so it is held at
 the reference's 1e-4·max|y| and 1e-4·max(max|h|, 1) for both.
 """
+import time
+
 import pytest
 import torch
 
@@ -329,3 +331,131 @@ def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
         tssd_ops.ssd_chunk(x, dt, cs, Bm.cpu(), Cm, chunk=16)
     with pytest.raises(ValueError, match="device"):
         tssd_ops.ssd(x, dt, a.cpu(), Bm, Cm, chunk=16)
+
+
+# -- the Helix core on CUDA tensors -------------------------------------------------
+
+@pytest.mark.cuda
+def test_block_makes_compute_cost_count_device_time(cuda, tmp_path):
+    """A node that only queues a long matmul loop returns at once on the
+    host; the executor's ``_block`` waits for the device, so the node's
+    measured C(n) is at least the loop's device time (CUDA events)."""
+    from repro_torch.core import dag, executor, omp, store
+    x = torch.randn(2048, 2048, device=cuda)
+
+    def loop():
+        y = x
+        for _ in range(200):
+            y = torch.tanh(y @ x)
+        return y
+
+    loop()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loop()
+    end.record()
+    torch.cuda.synchronize()
+    device_s = start.elapsed_time(end) / 1e3
+    d = dag.DAG([dag.Node("mm", loop, is_output=True)])
+    report = executor.execute(
+        d, {"mm": "sig-mm"}, {"mm": dag.State.COMPUTE},
+        store.Store(str(tmp_path / "s")), omp.Materializer(policy=omp.Policy.NEVER))
+    assert report.runtime["mm"] >= 0.9 * device_s > 0
+
+
+@pytest.mark.cuda
+def test_cuda_entry_offloads_to_pinned_host_and_places_back(cuda, tmp_path):
+    """A value loaded from disk onto the card is admitted to the memory
+    tier as device tensors: a hit before the offload lands hands those
+    tensors back as they are; the writer thread's offload swaps in pinned
+    host tensors; a hit after it is placed back on ``cuda`` bitwise equal
+    to the saved value."""
+    from repro_torch.core.store import Store
+    g = torch.Generator(device=cuda).manual_seed(0)
+    value = {"w": torch.randn(512, 256, generator=g, device=cuda).bfloat16(),
+             "i": torch.arange(1000, device=cuda, dtype=torch.int32),
+             "host": torch.ones(3), "pos": 7}
+    Store(str(tmp_path / "s")).save("ab12", "n", value)
+    place = lambda i, shape, dtype: cuda  # noqa: E731
+    store = Store(str(tmp_path / "s"), mem_budget_bytes=64e6)
+    offload = store._mem._offload
+    store._mem._offload = None          # hold the offload back for now
+    first, _ = store.load("ab12", sharding_for_leaf=place)     # disk → card
+    assert first["w"].is_cuda and first["host"].is_cuda
+    ent = store._mem.peek("ab12")
+    assert ent is not None and ent.has_device
+    hit, _ = store.load("ab12", sharding_for_leaf=place)       # before it
+    assert all(hit[k] is first[k] for k in ("w", "i", "host"))
+    store._mem._offload = offload
+    offload("ab12")
+    store.writer_drain()
+    ent = store._mem.peek("ab12")
+    assert not ent.has_device
+    assert all(t.device.type == "cpu" and t.is_pinned()
+               for t in (ent.value["w"], ent.value["i"], ent.value["host"]))
+    assert store.tier_status()["memory"]["offload_bytes"] > 0
+    got, _ = store.load("ab12", sharding_for_leaf=place)       # after it
+    for k in ("w", "i", "host"):
+        assert got[k].is_cuda and got[k].dtype == value[k].dtype
+        assert torch.equal(got[k].reshape(-1).view(torch.uint8).cpu(),
+                           value[k].reshape(-1).view(torch.uint8).cpu())
+    assert got["pos"] == 7
+
+
+@pytest.mark.cuda
+def test_session_without_placement_keeps_loaded_values_on_the_card(cuda,
+                                                                   tmp_path):
+    """A session run without ``load_shardings`` hands every loaded value
+    back on ``cuda``, the device it was computed on: from the memory
+    tier (which holds the pinned host snapshot the save took), after a
+    restart from the disk tier, and from ``Store.load`` once the writer
+    has drained."""
+    from repro_torch.core import (EngineConfig, IterativeSession, Policy,
+                                  Store, StoreConfig, Workflow)
+    from repro_torch.core.tree import tree_leaves
+    seen = []
+
+    def value():
+        g = torch.Generator(device=cuda).manual_seed(0)
+        return {"w": torch.randn(256, 256, generator=g,
+                                 device=cuda).bfloat16(),
+                "b": torch.arange(256, device=cuda, dtype=torch.int32)}
+
+    def make_x():
+        time.sleep(0.5)     # dearer than any load: the planner loads x
+        return value()
+
+    def f(x, k):
+        return x["w"].float() @ x["w"].float() * k + x["b"]
+
+    def build(k):
+        wf = Workflow("w")
+        x = wf.source("x", make_x, config=0)
+
+        def y(x):
+            seen.extend(t.device for t in tree_leaves(x))
+            return f(x, k)
+        wf.output(wf.extractor("y", y, [x], config=k))
+        return wf
+
+    engine = EngineConfig(policy=Policy.ALWAYS)
+    storage = StoreConfig(mem_budget_bytes=64e6)
+    sess = IterativeSession(str(tmp_path / "w"), engine=engine,
+                            storage=storage)
+    sess.run(build(1))
+    for k, restart in ((2, False), (3, True)):
+        if restart:
+            sess = IterativeSession(str(tmp_path / "w"), engine=engine,
+                                    storage=storage)
+        seen.clear()
+        report = sess.run(build(k))
+        assert report.execution.states["x"].name == "LOAD", k
+        assert seen and all(d.type == "cuda" for d in seen), (k, seen)
+        assert torch.allclose(report.outputs["y"], f(value(), k))
+    sess.store.writer_drain()
+    store = Store(str(tmp_path / "w" / "store"))
+    for sig in store.entries():
+        value, _ = store.load(sig)
+        assert all(t.is_cuda for t in tree_leaves(value)
+                   if isinstance(t, torch.Tensor)), sig

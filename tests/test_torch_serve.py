@@ -101,10 +101,17 @@ def test_serve_cli_runs_reduced_on_cpu(capsys):
     assert "first sequence:" in out
 
 
+CORE_MODULES = ("tree", "dag", "workflow", "signature", "oep", "omp", "costs",
+                "pruning", "config", "locking", "eviction", "remote",
+                "faults", "chunks", "memtier", "store", "executor",
+                "session")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
-    cannot slip past) and ``chip_smoke`` (without running it), then check
-    that no JAX, ml_dtypes or reference module was loaded."""
+    cannot slip past; the Helix core's modules are named so that none is
+    missed) and ``chip_smoke`` (without running it), then check that no
+    JAX, ml_dtypes or reference module was loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -113,6 +120,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert 'repro_torch.kernels.ssd.ops' in mods, mods\n"
+        f"core = {['repro_torch.core.' + m for m in CORE_MODULES]!r}\n"
+        "assert set(core) <= set(mods), sorted(set(core) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
