@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; none is caught and passed over):
   2. build every CUDA kernel from the repo's sources (one nvcc per source,
      all at once) and print the build seconds and ptxas's report;
   3. hold each kernel against its plain PyTorch version on the card, at
-     the test shapes and at the serving paths' shapes; time the kernel, the
+     the test shapes and at the serving and training paths' shapes (the
+     RMSNorm backward at the train shape); time the kernel, the
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick the port never calls), each
      with a cold L2; for flash also print the achieved TFLOP/s, the share
@@ -36,13 +37,31 @@ Phases (any failure exits non-zero; none is caught and passed over):
      device → host offload and disk → card load rates beside the host
      link that bounds them (``nvidia-smi``'s PCIe generation and width,
      and the measured rate of a pinned 1 GiB copy each way);
-  6. print one ``{"kernels": [...]}`` line, then the result line
+  6. train internlm2-1.8b at full width and depth on the card through
+     ``repro_torch.launch.train``'s step loop (random state from a seeded
+     generator, batch 4 x 512 from ``TokenBatcher``): 3 steps through the
+     kernels (RMSNorm forward and backward in ``RMSNormFn``; the counts
+     must be the remat arithmetic, 4L + 1 forwards and 2L + 1 backwards a
+     step), the same 3 steps on the plain path, per-step loss and grad
+     norm and the first step's norm-weight gradients held against it, the
+     noise floor between two plain paths beside them; ms a step, tokens/s,
+     peak memory and the card's busy share (one profiled step, its top
+     kernels); then the resume check at reduced size: 4 steps with a
+     segment at 2, a restart from step 2, bitwise the uninterrupted run;
+  7. the LM workflow in a Helix session (``launch.bench_tier`` on the card:
+     cold, warm, then an ``LI`` edit of ``peak_lr``), each iteration's
+     counts matching the states the planner chose (a reused ``train``
+     launches no backward), every stored ``TrainState`` (after the warm
+     run and after the edit) reloading from disk onto the card bitwise
+     equal to the memory tier's copy of what its node computed;
+  8. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX and nothing of the JAX package ``src/repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -55,6 +74,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
@@ -85,6 +105,15 @@ SESSION_MEM_BUDGET = 8e9
 # rounding (chunked vs reference attention) are printed as that noise
 # floor. A wiring, masking or offset fault moves the logits by far more.
 LOGITS_REL_TOL = 6e-2
+# phase 6: the train path vs its plain path, per step and for the first
+# step's norm-weight gradients (each leaf relative to its max |g|). Both
+# run the same bf16 model; they differ only where the kernels round
+# (a bf16 dx one ulp apart, dw summed in another order), which 24 layers
+# amplify as in serving: held at the serving bound, with the floor between
+# two plain paths (chunked vs reference attention) printed beside.
+TRAIN_STEPS, TRAIN_LR, TRAIN_TOTAL = 3, 3e-3, 300   # the trainer's defaults
+LOSS_REL_TOL = 1e-2
+GRAD_REL_TOL = 6e-2
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
@@ -186,6 +215,59 @@ def check_rmsnorm(dev, timer, peaks):
     print(f"rmsnorm {(BATCH, 1, 2048)} bf16 host µs per call: "
           + json.dumps(host))
     return out
+
+
+def check_rmsnorm_bwd(dev, timer, peaks):
+    """The backward kernel pair against ``rmsnorm_bwd_ref``: dx and dw,
+    each relative to max(1, its max |ref|) (dw sums one term a row), at
+    2e-2 (bf16 dx) and 2e-5 (fp32 dx, and dw for either); then timed at
+    the train shape, beside the plain version and the library's backward
+    (``torch.autograd.grad`` through ``F.rms_norm``, the graph kept)."""
+    from repro_torch.kernels.rmsnorm import ops, ref
+    g = torch.Generator(device=dev).manual_seed(4)
+    train = (BATCH * PROMPT, 2048)
+    shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8), (2049, 776), train,
+              (BATCH, PROMPT, 2048)]
+    out = None
+    for shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            w = torch.randn(shape[-1:], generator=g, device=dev)
+            dx, dw = ops.rmsnorm_bwd(x, w, dy)
+            dx_ref, dw_ref = ref.rmsnorm_bwd_ref(x, w, dy)
+            torch.cuda.synchronize()
+            scale = lambda t: max(1.0, float(t.abs().max()))  # noqa: E731
+            ex, ew = max_err(dx, dx_ref), max_err(dw, dw_ref)
+            print(f"rmsnorm_bwd {shape} {dtype}: max_abs_err dx {ex:.3g}, "
+                  f"dw {ew:.3g}")
+            require(ex <= FLASH_TOL[dtype] * scale(dx_ref)
+                    and ew <= FLASH_TOL[torch.float32] * scale(dw_ref),
+                    ("rmsnorm_bwd", shape, dtype, ex, ew))
+            if shape == train and dtype == torch.bfloat16:
+                out = (x, w, dy, max(ex, ew))
+    x, w, dy, err = out
+    again = ops.rmsnorm_bwd(x, w, dy)[1]
+    require(torch.equal(again, ops.rmsnorm_bwd(x, w, dy)[1]),
+            "rmsnorm_bwd's dw differs between two runs")
+    d = x.shape[-1]
+    xl = x.detach().requires_grad_()
+    wl = w.to(x.dtype).requires_grad_()
+    y_lib = F.rms_norm(xl, (d,), wl, 1e-5)
+    nbytes = 3 * x.numel() * x.element_size() + 2 * d * 4  # x, dy; dx; w; dw
+    flops = 12 * x.numel()      # g, x², g·x, dx (4), dw (3), fp32
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[2] * 1e3
+    row = {"ms": timer(lambda: ops.rmsnorm_bwd(x, w, dy)),
+           "plain_ms": timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
+           "library_ms": timer(lambda: torch.autograd.grad(
+               y_lib, (xl, wl), dy, retain_graph=True)),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": err}
+    print(f"rmsnorm_bwd {tuple(x.shape)} bf16: " + json.dumps(row)
+          + f" ({nbytes / 1e6:.1f} MB; {row['bound_ms'] / row['ms']:.1%} of "
+          f"its bound, {row['ms'] / row['library_ms']:.2f}x the library's time)")
+    return row
 
 
 def check_flash(dev, timer, peaks):
@@ -410,13 +492,15 @@ def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
 
 def launch_counters():
     """{count name: (wrapper, attribute)}; each attribute counts kernel
-    launches since it was last set to 0. ``flash_attention_tc`` and
+    launches since it was last set to 0 (``rmsnorm_bwd`` counts calls, each
+    of which launches its row kernel and its dw sum). ``flash_attention_tc`` and
     ``ssd_tc`` count the launches that ran the bf16 tensor-core kernel of
     flash and of the SSD chunk."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"rmsnorm": (rn_ops.rmsnorm, "launches"),
+            "rmsnorm_bwd": (rn_ops.rmsnorm_bwd, "launches"),
             "flash_attention": (fa_ops.flash_attention, "launches"),
             "flash_attention_tc": (fa_ops.flash_attention, "launches_tc"),
             "ssd": (ssd_ops.ssd, "launches"),
@@ -488,7 +572,7 @@ def serve_full(dev):
     from repro_torch import configs
     cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
     return serve_path(dev, cfg, plain_last_logits, "reference", {
-        "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
+        "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": cfg.num_layers,
         "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0})
 
@@ -502,7 +586,7 @@ def serve_ssm(dev):
     from repro_torch import configs
     cfg = configs.get(SSM_ARCH)
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
-        "rmsnorm": (2 * cfg.num_layers + 1) * GEN,
+        "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers,
         "ssd_tc": cfg.num_layers})
 
@@ -594,8 +678,8 @@ def serve_workflow(cfg, init_params, gen_tokens, *, device, batch=BATCH,
 
 
 def same_bits(a, b) -> bool:
-    """Leaf for leaf, the same types and, for tensors, the same dtype,
-    shape and bits."""
+    """Leaf for leaf, the same types and, for tensors and arrays, the same
+    dtype, shape and bits."""
     from repro_torch.core.tree import tree_flatten
     (la, da), (lb, db) = tree_flatten(a), tree_flatten(b)
     if da != db:
@@ -606,6 +690,10 @@ def same_bits(a, b) -> bool:
                     and x.shape == y.shape and torch.equal(
                         x.reshape(-1).view(torch.uint8),
                         y.to(x.device).reshape(-1).view(torch.uint8))):
+                return False
+        elif isinstance(x, np.ndarray):
+            if not (isinstance(y, np.ndarray) and x.dtype == y.dtype
+                    and np.array_equal(x, y)):
                 return False
         elif x != y:
             return False
@@ -646,7 +734,7 @@ def session_iteration(label, session, cfg, init, gen, dev, place, direct):
     states = ex.states
     prefill_runs = int(states["prefill"] is State.COMPUTE)
     forwards = prefill_runs + (gen - 1) * int(states["decode"] is State.COMPUTE)
-    expect = {"rmsnorm": (2 * cfg.num_layers + 1) * forwards,
+    expect = {"rmsnorm": (2 * cfg.num_layers + 1) * forwards, "rmsnorm_bwd": 0,
               "flash_attention": cfg.num_layers * prefill_runs,
               "flash_attention_tc": cfg.num_layers * prefill_runs,
               "ssd": 0, "ssd_tc": 0}
@@ -809,6 +897,292 @@ def session_path(dev):
     return total
 
 
+# ------------------------------------------------------------------ phase 6
+def _plain_rmsnorm(x, w, eps=1e-5):
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    return rmsnorm_ref(x, w, eps)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every kernel of the train path replaced by its plain version: the
+    model's norms go through ``rmsnorm_ref`` (differentiable plain torch);
+    attention already trains through the plain ``chunked`` path."""
+    from repro_torch.models import layers
+    kernel = layers.rmsnorm
+    layers.rmsnorm = _plain_rmsnorm
+    try:
+        yield
+    finally:
+        layers.rmsnorm = kernel
+
+
+def _reset(counters):
+    for wrapper, attr in counters.values():
+        setattr(wrapper, attr, 0)
+
+
+def _read(counters):
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in counters.items()}
+
+
+NORM_LEAVES = ("final_norm", "blocks.ln1", "blocks.ln2")
+
+
+def _norm_grads(grads):
+    return {"final_norm": grads["final_norm"],
+            "blocks.ln1": grads["blocks"]["ln1"],
+            "blocks.ln2": grads["blocks"]["ln2"]}
+
+
+def train_path(dev):
+    """Phase 6: internlm2-1.8b at full width and depth through the
+    trainer's step loop (``launch.train.train``), kernels vs plain. Returns
+    the kernel run's launch counts."""
+    from repro_torch import configs
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher, batch_to
+    from repro_torch.launch import train
+    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = configs.get(ARCH)                  # attn_impl "chunked", remat "block"
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    params0 = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev).params
+    n_params = sum(t.numel() for t in _leaves(params0))
+    tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
+                             cfg.vocab_size)
+    batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"train {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B params, remat {cfg.remat}, attn_impl "
+          f"{cfg.attn_impl}, xent {cfg.xent_impl}; batch {BATCH} x {PROMPT}; "
+          f"init {time.perf_counter() - t0:.1f} s")
+
+    def fresh():
+        # the moments are zeros: only the params are kept between paths
+        return steps.TrainState(params=params0, opt=adamw.init(params0))
+
+    def run():
+        return train.train(cfg, fresh(), batcher, 0, TRAIN_STEPS,
+                           lr=TRAIN_LR, total_steps=TRAIN_TOTAL, device=dev,
+                           log_every=1)
+
+    batch0 = batch_to(batcher.batch_at(0), dev)
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    kern = run()                            # the main path
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    steady = kern.step_s[1:]
+    step_ms = sum(steady) / len(steady) * 1e3
+    print(f"train {cfg.name} through the kernels: step s {kern.step_s}; "
+          f"{step_ms:.1f} ms/step over steps 2-{TRAIN_STEPS} "
+          f"({BATCH * PROMPT / step_ms * 1e3:.0f} tokens/s); peak memory "
+          f"{peak_gb:.2f} GB; launches {launches}")
+    expect = {k: 0 for k in counters}
+    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
+                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    require(launches == expect, ("train launches", launches, expect))
+    require(all(torch.isfinite(torch.tensor(m["loss"])) for m in kern.metrics),
+            "a train loss is not finite")
+    require(kern.metrics[-1]["step"] == TRAIN_STEPS, kern.metrics[-1])
+    kern_metrics = kern.metrics
+    del kern                                 # frees its state
+    _, g_kern = steps.value_and_grad(cfg, params0, batch0)
+    g_kern = _norm_grads(g_kern)
+    before_plain = _read(counters)
+    with plain_kernels():
+        plain = run()
+        _, g_plain = steps.value_and_grad(cfg, params0, batch0)
+        g_plain = _norm_grads(g_plain)
+        cfg_ref = dataclasses.replace(cfg, attn_impl="reference")
+        floor_run = train.train(cfg_ref, fresh(), batcher, 0, TRAIN_STEPS,
+                                lr=TRAIN_LR, total_steps=TRAIN_TOTAL,
+                                device=dev, log_every=1)
+        _, g_floor = steps.value_and_grad(cfg_ref, params0, batch0)
+        g_floor = _norm_grads(g_floor)
+    require(_read(counters) == before_plain, "the plain paths launched a kernel")
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(a), 1e-30)
+
+    errs, floor = {}, {}
+    for i, (k_m, p_m, f_m) in enumerate(zip(kern_metrics, plain.metrics,
+                                            floor_run.metrics)):
+        for key in ("loss", "grad_norm"):
+            errs[f"step{i + 1}.{key}"] = rel(p_m[key], k_m[key])
+            floor[f"step{i + 1}.{key}"] = rel(p_m[key], f_m[key])
+    for name in NORM_LEAVES:
+        require(float(g_kern[name].abs().max()) > 0,
+                f"the kernel path's {name} gradient is zero")
+        errs[f"grad.{name}"] = rel_err(g_plain[name], g_kern[name])
+        floor[f"grad.{name}"] = rel_err(g_plain[name], g_floor[name])
+    print(f"train kernels vs plain path (relative): {json.dumps(errs)}; "
+          f"noise floor between two plain paths: {json.dumps(floor)}")
+    for key, err in errs.items():
+        require(err < (GRAD_REL_TOL if "grad" in key else LOSS_REL_TOL),
+                (key, err))
+    del plain, floor_run, g_kern, g_plain, g_floor
+
+    # one more step through the kernels, profiled: the card's busy share
+    # of the step's wall time and where its device time goes
+    state = fresh()
+    batch = batch_to(batcher.batch_at(0), dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, metrics = steps.train_step(cfg, state, batch, peak_lr=TRAIN_LR,
+                                          warmup_steps=20,
+                                          total_steps=TRAIN_TOTAL)
+        float(metrics["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del state
+    times, calls = _kernel_times(prof)
+    require(bool(times), "torch.profiler recorded no device time")
+    dev_ms = sum(times.values()) / 1e3
+    print(f"train step profiled: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms "
+          f"(busy {dev_ms / wall_ms:.1%}), {sum(calls.values())} launches; "
+          f"top kernels by device time:")
+    for name, us in times.most_common(12):
+        print(f"  {us / 1e3:9.3f} ms {us / 1e3 / dev_ms:6.1%} "
+              f"{calls[name]:6d}x  {name[:100]}")
+    del params0, batch0
+    torch.cuda.empty_cache()
+    resume_check(dev)
+    return launches
+
+
+def resume_check(dev):
+    """The trainer at reduced size on the card: 4 steps with a segment at
+    2; then the job is taken as preempted after its step-2 checkpoint (step
+    4's is removed) and restarted with ``--resume``. It must end on the
+    uninterrupted run's state, bitwise."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import Store
+    from repro_torch.launch import train
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    try:
+        args = ["--device", dev.type, "--reduced", "--arch", ARCH, "--steps", "4",
+                "--segment-steps", "2", "--batch", "8", "--seq", "128",
+                "--log-every", "1", "--workdir", workdir]
+        full = train.main(args)
+        run = f"{configs.reduced(configs.get(ARCH)).name}-s0"
+        store = Store(os.path.join(workdir, "store"))
+        require(store.delete(ckpt._sig(run, 4)) > 0, "no step-4 checkpoint")
+        resumed = train.main(args + ["--resume"])
+        leaves_on_card = all(t.is_cuda for t in _tree_leaves(resumed.state))
+        equal = same_bits(resumed.state, full.state)
+        print(f"resume check ({run}): resumed at step {resumed.start_step}, "
+              f"losses {resumed.losses} vs {full.losses[2:]}; state on the "
+              f"card: {leaves_on_card}; bitwise equal to the uninterrupted "
+              f"run: {equal}")
+        require(resumed.start_step == 2 and leaves_on_card and equal,
+                "the resumed run differs from the uninterrupted one")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _tree_leaves(tree):
+    from repro_torch.core.tree import tree_leaves
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+# ------------------------------------------------------------------ phase 7
+def check_stored_states(store, dev, label):
+    """Every stored ``TrainState`` (the initial one, and the train node's
+    latest: the session drops a node's superseded entry), from the disk
+    tier onto the card, against the memory tier's copy of the value its
+    node computed."""
+    from repro_torch.core import Store
+    store.writer_drain()
+    disk = Store(store.root, mem_budget_bytes=0.0)
+    names = []
+    for sig, meta in sorted(disk.entries().items(),
+                            key=lambda kv: kv[1]["name"]):
+        if meta["name"] not in ("initState", "train"):
+            continue
+        value, secs = disk.load(sig, sharding_for_leaf=lambda i, sh, d: dev)
+        kept, _ = store.load(sig)
+        on_card = all(t.is_cuda for t in _tree_leaves(value))
+        equal = same_bits(value, kept)
+        print(f"stored {meta['name']} ({sig[:12]}) {label}: {meta['nbytes']} B, "
+              f"disk->cuda {secs:.4f} s; on the card: {on_card}; bitwise "
+              f"equal to the memory tier's: {equal}")
+        require(on_card and equal, ("stored TrainState", meta["name"], label))
+        names.append(meta["name"])
+    require(names == ["initState", "train"], (label, names))
+
+
+def lm_workflow_path(dev):
+    """Phase 7: the LM workflow in a Helix session on the card
+    (``launch.bench_tier``: cold, warm; then an ``LI`` edit of
+    ``peak_lr``). Returns the launch counts summed over its iterations."""
+    from repro_torch import workflows as W
+    from repro_torch.core import State
+    from repro_torch.launch import bench_tier
+    k = W.LMKnobs()
+    L = k.n_layers
+    counters = launch_counters()
+    per_iter = {}
+
+    @contextlib.contextmanager
+    def around(label):
+        torch.cuda.synchronize()
+        _reset(counters)
+        yield
+        torch.cuda.synchronize()
+        per_iter[label] = _read(counters)
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="lm-tier-", dir=os.path.join(ROOT, "build"))
+    try:
+        res = bench_tier.bench_tier(os.path.join(workdir, "lm_tier"), k,
+                                    device=dev, around=around)
+        sess = res.session
+        check_stored_states(sess.store, dev, "after the warm run")
+        edit = dataclasses.replace(k, peak_lr=3e-3)
+        with around("LI edit"):
+            rep = sess.run(W.build_lm(edit, device=dev))
+        reports = {"cold": res.reports[0], "warm": res.reports[1],
+                   "LI edit": rep}
+        total = {name: 0 for name in counters}
+        for label, r in reports.items():
+            states = r.execution.states
+            train_runs = int(states["train"] is State.COMPUTE)
+            eval_runs = int(states["evalLoss"] is State.COMPUTE)
+            expect = {name: 0 for name in counters}
+            expect.update(
+                rmsnorm=(4 * L + 1) * k.steps * train_runs + (2 * L + 1) * eval_runs,
+                rmsnorm_bwd=(2 * L + 1) * k.steps * train_runs)
+            print(f"lm workflow {label}: states "
+                  f"{ {n: st.name for n, st in states.items()} }; launches "
+                  f"{per_iter[label]}; evalLoss {r.outputs['evalLoss']}")
+            require(per_iter[label] == expect, (label, per_iter[label], expect))
+            for name in total:
+                total[name] += per_iter[label][name]
+        require(rep.outputs["evalLoss"]["train_losses"][0]
+                == reports["cold"].outputs["evalLoss"]["train_losses"][0],
+                "the edit's first step differs from the cold run's")
+        sess.store.writer_drain()
+        check_stored_states(sess.store, dev, "after the edit")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"lm workflow launches: {total}")
+    return total
+
+
 def link_rates(dev, nbytes=1 << 30, n=5):
     """GB/s of a pinned host buffer copied to the card and back (CUDA
     events around ``n`` copies each way, after one warm-up copy): the
@@ -874,15 +1248,21 @@ def main() -> int:
 
     timer = ColdTimer(dev)
     rows = {"rmsnorm": check_rmsnorm(dev, timer, peaks),
+            "rmsnorm_bwd": check_rmsnorm_bwd(dev, timer, peaks),
             "flash_attention": check_flash(dev, timer, peaks),
             "ssd": check_ssd(dev, timer, peaks)}
     del timer
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
-               "helix-session": session_path(dev)}
+               "helix-session": session_path(dev),
+               "train-internlm2": train_path(dev),
+               "lm-workflow": lm_workflow_path(dev)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/rmsnorm.py:28"),
+        # no TPU kernel: the reference differentiates the jnp rmsnorm
+        # (src/repro/models/layers.py:27) by autodiff
+        "rmsnorm_bwd": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", None),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:109"),
@@ -900,6 +1280,9 @@ def main() -> int:
         if f"{k}_tc" in launch_counters():
             row["launches_tensor_core"] = sum(
                 n[f"{k}_tc"] for n in by_path.values())
+        if replaces is None:
+            row["note"] = ("the reference differentiates "
+                           "src/repro/models/layers.py:27 by autodiff")
         kernels.append({**row, **rows[k]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,4 @@
-from . import synth
+from . import pipeline, synth
+from .pipeline import TokenBatcher, batch_to
 
-__all__ = ["synth"]
+__all__ = ["pipeline", "synth", "TokenBatcher", "batch_to"]

@@ -2,10 +2,14 @@
 cache, gated MLP (twin of the JAX package's ``models/layers.py``).
 
 Plain functions on tensors over the reference's dict parameter tree.
-``rmsnorm`` always goes through the RMSNorm kernel's wrapper, and
-``gqa_attention`` with ``impl="flash"`` and ``S_q > 1`` through the
-FlashAttention wrapper; on CPU tensors both wrappers take their plain
-versions. ``ring_update``, ``attn_block_ring`` and ``cross_attn_block`` come
+``rmsnorm`` always goes through the RMSNorm kernel's wrapper, which is
+differentiable (``RMSNormFn``: the forward kernel, and a backward kernel
+where the reference has autodiff of its jnp rmsnorm) wherever grad mode
+is on and an input requires grad, and a direct launch otherwise;
+``gqa_attention`` with ``impl="flash"`` and ``S_q > 1`` goes through the
+FlashAttention wrapper, which is forward only: training runs the plain
+``"chunked"`` attention, as the reference does. On CPU tensors both
+wrappers take their plain versions. ``ring_update``, ``attn_block_ring`` and ``cross_attn_block`` come
 with the windowed and audio families (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations

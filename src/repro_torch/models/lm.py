@@ -10,6 +10,13 @@ C) and the SSM state (layers, B, H, P, N). The ssm stack runs its blocks
 with ``use_kernel=True``, so prefill goes through the SSD chunk kernel
 (the reference's stack leaves it off).
 
+For training, each layer of the dense stack runs under
+``torch.utils.checkpoint`` where the reference wraps its scan body in
+``jax.checkpoint`` (``_maybe_remat``, ``cfg.remat``), and only where grad
+mode is on and there is no cache, so serving is unchanged. Training the
+ssm family needs a backward of the SSD chunk kernel and raises in
+``train/steps.py`` (ROADMAP queue 1 item 10).
+
 The other families raise ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -17,6 +24,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from . import layers, ssd as ssd_lib
 from .config import ArchConfig
@@ -120,6 +128,22 @@ def embed_lookup(cfg: ArchConfig, table: torch.Tensor, tokens: torch.Tensor
     return table.to(torch.bfloat16)[tokens.long()]
 
 
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` under the activation checkpointing ``cfg.remat`` names:
+    ``"none"`` keeps it as it is; ``"block"`` (and ``"full"``, which the
+    reference treats alike) recomputes it in the backward, saving only its
+    inputs (``jax.checkpoint``'s default). ``"dots"`` (save the matmuls'
+    outputs) has no torch checkpoint policy yet."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' has no torch checkpoint policy yet "
+            "(ROADMAP queue 1 item 10)")
+    return lambda *args: torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False)
+
+
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
             positions: torch.Tensor | None = None,
             vision_embeds: torch.Tensor | None = None,
@@ -155,23 +179,39 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     return LMOut(logits=logits, cache=new_cache, aux_loss=aux)
 
 
+def _unstack(tree: Any, n: int) -> list:
+    """The stacked ``blocks`` tree as ``n`` per-layer trees of views, one
+    ``unbind`` per leaf: its backward stacks the layers' gradients once,
+    where indexing each layer would add a zero-filled gradient of the whole
+    stacked leaf per layer."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 # --- homogeneous attention stack (dense) --------------------------------------
 def _attn_stack(cfg, params, h, positions, cache):
     blocks = params["blocks"]
     has_cache = cache is not None
-    for i in range(cfg.num_layers):
-        p = tree_map(lambda t: t[i], blocks)
-        window = cfg.layer_window(i)
+
+    def body(h, p, window, kv_cache):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         attn_out, _ = layers.attn_block(
-            cfg, p["attn"], x, positions,
-            window=window if window is not None else layers.GLOBAL_WINDOW,
-            kv_cache=(cache["k"][i], cache["v"][i]) if has_cache else None,
+            cfg, p["attn"], x, positions, window=window, kv_cache=kv_cache,
             cache_pos=cache["pos"] if has_cache else None)
         h = h + attn_out
         if cfg.d_ff:
             x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
             h = h + layers.mlp_block(p["mlp"], x)
+        return h
+
+    if torch.is_grad_enabled() and not has_cache:
+        body = _maybe_remat(body, cfg)
+    for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
+        window = cfg.layer_window(i)
+        h = body(h, p, window if window is not None else layers.GLOBAL_WINDOW,
+                 (cache["k"][i], cache["v"][i]) if has_cache else None)
     new_cache = None
     if has_cache:
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
@@ -182,8 +222,7 @@ def _attn_stack(cfg, params, h, positions, cache):
 def _ssm_stack(cfg, params, h, positions, cache):
     blocks = params["blocks"]
     has_cache = cache is not None
-    for i in range(cfg.num_layers):
-        p = tree_map(lambda t: t[i], blocks)
+    for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
         state = (cache["conv"][i], cache["h"][i]) if has_cache else None
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         out, (conv, hst) = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,

@@ -1,19 +1,166 @@
-"""Serving steps (twin of the JAX package's ``train/steps.py``).
+"""Train / prefill / decode steps (twin of the JAX package's
+``train/steps.py``).
+
+``train_step`` is one optimizer step: gradient accumulation over
+``cfg.grad_accum`` microbatches with fp32 accumulators, global-norm
+clipping, the 1-indexed warmup-cosine schedule and AdamW (fp32 moments).
+Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
+its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
+dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
+Only the dense family trains: the ssm and hybrid families need a backward
+of the SSD chunk kernel (ROADMAP queue 1 item 10), and the other families
+raise as ``lm.forward`` does (item 8). Attention trains through the plain
+paths: the FlashAttention kernel has no backward yet (queue 2).
 
 ``prefill_step`` builds the KV cache from a full prompt in one forward;
-``decode_step`` advances one token against it. ``train_step`` and the
-loss come with the training slice (ROADMAP queue 1 item 5).
+``decode_step`` advances one token against it.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 
+from ..core.tree import tree_flatten, tree_map, tree_unflatten
 from ..models import lm, registry
 from ..models.config import ArchConfig
+from ..optim import adamw, schedules
 
 
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+
+
+def init_train_state(cfg: ArchConfig, generator: torch.Generator,
+                     device: torch.device | str) -> TrainState:
+    """Params from ``registry.init`` (``generator`` lives on ``device``)
+    and zero AdamW moments."""
+    params = registry.init(cfg, generator, device)
+    return TrainState(params=params, opt=adamw.init(params))
+
+
+def _require_trainable(cfg: ArchConfig) -> None:
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family} family needs a backward "
+            "of the SSD chunk kernel (ROADMAP queue 1 item 10)")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(ROADMAP queue 1 item 8)")
+    if cfg.attn_impl == "flash":
+        raise NotImplementedError(
+            "the FlashAttention kernel has no backward yet (ROADMAP queue 2): "
+            "train with attn_impl='chunked' or 'reference'")
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
+          impl: str = "gather") -> torch.Tensor:
+    if impl == "onehot":
+        # The reference contracts the logits with a one-hot in the logits'
+        # dtype; a product by exact ones and zeros picks the gold logit
+        # exactly, so a gather gives the same bits, and the same gradient
+        # (the one-hot scatter of the gold cotangent).
+        m = logits.amax(-1, keepdim=True).detach()
+        shifted = (logits - m).to(torch.float32)
+        logz = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0].to(torch.float32)
+        gold = logits.gather(-1, targets[..., None].long())[..., 0]
+        nll = (logz - gold.to(torch.float32)) * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def loss_fn(cfg: ArchConfig, params: Any, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    """batch keys: tokens (B, S) [+ loss_mask]. Next-token LM loss.
+    Returns (loss + 0.01·aux, {"loss", "aux_loss"})."""
+    _require_trainable(cfg)
+    tokens = batch["tokens"]
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    out = lm.forward(cfg, params, tokens,
+                     vision_embeds=batch.get("vision_embeds"),
+                     mrope_positions=batch.get("mrope_positions"))
+    logits = out.logits[:, :-1]
+    targets = tokens[:, 1:]
+    loss = _xent(logits, targets, mask[:, 1:], impl=cfg.xent_impl)
+    aux = 0.01 * out.aux_loss
+    return loss + aux, {"loss": loss, "aux_loss": out.aux_loss}
+
+
+def value_and_grad(cfg: ArchConfig, params: Any, batch: dict
+                   ) -> tuple[dict, Any]:
+    """(metrics, grads) of ``loss_fn`` at ``params``: the twin of
+    ``jax.value_and_grad(..., has_aux=True)``. Grads are in each param's
+    dtype; ``params`` are left as they are (the graph is built on detached
+    aliases of them)."""
+    flat, treedef = tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    with torch.enable_grad():
+        total, metrics = loss_fn(cfg, tree_unflatten(treedef, leaves), batch)
+        grads = torch.autograd.grad(total, leaves)
+    return ({k: v.detach() for k, v in metrics.items()},
+            tree_unflatten(treedef, list(grads)))
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+def train_step(cfg: ArchConfig, state: TrainState, batch: dict, *,
+               peak_lr: float = 3e-4, warmup_steps: int = 100,
+               total_steps: int = 10_000, clip_norm: float = 1.0
+               ) -> tuple[TrainState, dict]:
+    """One optimizer step. Returns the new state (``state`` is left as it
+    is) and the metrics ``loss``, ``aux_loss``, ``grad_norm``, ``lr`` and
+    ``step``, as 0-d fp32 tensors on the state's device."""
+    _require_trainable(cfg)
+    accum = max(cfg.grad_accum, 1)
+    if accum == 1:
+        metrics, grads = value_and_grad(cfg, state.params, batch)
+        grads = tree_map(lambda g: g.to(torch.float32), grads)
+    else:
+        if "mrope_positions" in batch:
+            raise NotImplementedError(
+                "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
+        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                 for k, v in batch.items()}
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), state.params)
+        metrics = {k: torch.zeros((), dtype=torch.float32,
+                                  device=batch["tokens"].device)
+                   for k in ("loss", "aux_loss")}
+        for i in range(accum):
+            m_i, g_i = value_and_grad(cfg, state.params,
+                                      {k: v[i] for k, v in micro.items()})
+            grads = tree_map(lambda a, g: a + g.to(torch.float32), grads, g_i)
+            metrics = {k: metrics[k] + m_i[k] / accum for k in metrics}
+            del g_i
+        grads = tree_map(lambda g: g / accum, grads)
+
+    grads, gnorm = adamw.clip_by_global_norm(grads, clip_norm)
+    # schedule is 1-indexed: step 0 would otherwise get lr == 0
+    lr = schedules.warmup_cosine(
+        state.opt.step + 1, peak_lr=peak_lr, warmup_steps=warmup_steps,
+        total_steps=total_steps)
+    new_params, new_opt = adamw.update(state.params, grads, state.opt, lr=lr)
+    metrics = dict(metrics, grad_norm=gnorm, lr=lr,
+                   step=new_opt.step.to(torch.float32))
+    return TrainState(params=new_params, opt=new_opt), metrics
+
+
+# ---------------------------------------------------------------------------
+# serving steps
+# ---------------------------------------------------------------------------
 def prefill_step(cfg: ArchConfig, params: Any, batch: dict, *,
                  max_len: int) -> tuple[torch.Tensor, Any]:
     """Build the cache from a full prompt. Returns (last logits, cache)."""

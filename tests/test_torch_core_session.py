@@ -39,6 +39,8 @@ from repro_torch.models import convert
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
+from test_torch_serve import (  # noqa: E402
+    _teacher_forced_logits, assert_every_step_and_clear_tokens_match)
 
 REL_TOL = 3e-2     # as tests/test_torch_serve.py: bf16 in both packages
 B, S, MAX_LEN, GENS = 2, 16, 24, (4, 6)
@@ -205,20 +207,18 @@ def test_serve_session_matches_reference(tmp_path, policy):
         # the port's session gives its own direct path's tokens exactly
         assert torch.equal(got, chip_smoke.prefill_and_decode(
             tcfg, tparams, tokens, gen, MAX_LEN)[2]["tokens"])
-        # and the reference's, up to the first step where the reference's
+        # every step's logits of the port, teacher-forced on the
+        # reference's tokens, within the tolerance of the reference's; and
+        # the reference's tokens up to the first step where the reference's
         # top-1/top-2 gap is within the tolerance (bf16 may pick either)
         ref_tokens = np.asarray(j_rep.outputs["decode"]["tokens"])
         ref_logits = np.asarray(j_rep.outputs["decode"]["logits"])
+        forced = _teacher_forced_logits(tcfg, tparams, tokens, ref_tokens,
+                                        MAX_LEN)
+        assert_every_step_and_clear_tokens_match(ref_tokens, ref_logits,
+                                                 forced, got.numpy())
         top2 = np.sort(ref_logits, -1)[..., -2:]
         margin = (top2[..., 1] - top2[..., 0]) / np.abs(ref_logits).max(-1)
-        checked = 0
-        for row in range(B):
-            for step in range(gen):
-                if margin[row, step] <= REL_TOL:
-                    break
-                assert int(got[row, step]) == int(ref_tokens[row, step])
-                checked += 1
-        assert checked >= B
         if all(margin[:, :gen].min(1) > REL_TOL):
             last = ref_logits[:, gen - 1]
             err = np.abs(last - t_rep.outputs["decode"]["last_logits"]

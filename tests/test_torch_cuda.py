@@ -90,6 +90,115 @@ def test_rmsnorm_kernel_matches_plain_at_each_block_size(cuda, shape, dtype):
     torch.testing.assert_close(out.float(), exp, atol=1e-5, rtol=rtol)
 
 
+# (rows, D) of the backward: the train shape of internlm2-1.8b (batch 4 x
+# 512), odd row counts (one row, fewer rows than blocks, stripes with a
+# ragged last one), part-filled warps, several vectors a thread, and the
+# widest D the repo's configs have
+RMSNORM_BWD_CASES = [
+    (2048, 2048), (1, 2048), (3, 2048), (257, 96), (2049, 776), (8, 128),
+    (5, 8), (600, 8192), (33, 12288), (1000, 2056),
+]
+
+
+def _bwd_close(got, want, tol):
+    """max |got - want| / max(1, max |want|) <= tol: dx and dw hold values
+    far from 1 (dw sums one term a row), so the error is taken relative to
+    their scale; a bf16 dx may round one ulp (2^-8 of it) apart."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    return err <= tol * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMSNORM_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, shape, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=cuda).to(dt)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dt)
+    w = torch.randn(shape[-1:], generator=g, device=cuda)
+    before = trn_ops.rmsnorm_bwd.launches
+    dx, dw = trn_ops.rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert trn_ops.rmsnorm_bwd.launches == before + 1
+    assert dx.dtype == dt and dx.shape == x.shape
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
+    dx_ref, dw_ref = trn_ref.rmsnorm_bwd_ref(x, w, dy)
+    ok, err = _bwd_close(dx, dx_ref, FLASH_TOL[dtype])
+    assert ok, ("dx", err)
+    ok, err = _bwd_close(dw, dw_ref, FLASH_TOL["float32"])
+    assert ok, ("dw", err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_bwd_dw_is_the_same_bits_on_every_run(cuda, dtype):
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, dy = (torch.randn(2048, 2048, generator=g, device=cuda).to(dt)
+             for _ in range(2))
+    w = torch.randn(2048, generator=g, device=cuda)
+    runs = [trn_ops.rmsnorm_bwd(x, w, dy) for _ in range(3)]
+    for dx, dw in runs[1:]:
+        assert torch.equal(dw, runs[0][1]) and torch.equal(dx, runs[0][0])
+
+
+@pytest.mark.cuda
+def test_rmsnorm_bwd_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    w = torch.randn(64, device=cuda)
+    with pytest.raises(ValueError, match="dy"):
+        trn_ops.rmsnorm_bwd(x, w, torch.randn(4, 64, device=cuda).bfloat16())
+    with pytest.raises(ValueError, match="dy"):
+        trn_ops.rmsnorm_bwd(x, w, torch.randn(4, 32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        trn_ops.rmsnorm_bwd(x, w, torch.randn(64, 4, device=cuda).T)
+    with pytest.raises(ValueError, match="wider"):
+        trn_ops.rmsnorm_bwd(torch.randn(2, 16392, device=cuda),
+                            torch.randn(16392, device=cuda),
+                            torch.randn(2, 16392, device=cuda))
+
+
+def _plain_rmsnorm(x, w, eps=1e-5):
+    return trn_ref.rmsnorm_ref(x, w, eps)
+
+
+@pytest.mark.cuda
+def test_train_step_norm_gradients_flow_through_the_kernels(cuda, monkeypatch):
+    """A train step's gradients on the card, through RMSNormFn (forward
+    and backward kernels), against the same step with every norm plain:
+    the norm weights' gradients are non-zero and agree, and the counts are
+    the remat arithmetic (4L + 1 forwards, 2L + 1 backwards)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import layers
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(configs.reduced(configs.get("internlm2-1.8b")),
+                              num_layers=3)
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    trn_ops.rmsnorm.launches = trn_ops.rmsnorm_bwd.launches = 0
+    metrics, grads = steps.value_and_grad(cfg, state.params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert (trn_ops.rmsnorm.launches, trn_ops.rmsnorm_bwd.launches) == (
+        4 * L + 1, 2 * L + 1)
+    monkeypatch.setattr(layers, "rmsnorm", _plain_rmsnorm)
+    plain_metrics, plain = steps.value_and_grad(cfg, state.params,
+                                                {"tokens": tokens})
+    assert trn_ops.rmsnorm.launches == 4 * L + 1    # the plain path ran none
+    assert abs(float(metrics["loss"]) - float(plain_metrics["loss"])) < 1e-2
+    for got, want in ((grads["final_norm"], plain["final_norm"]),
+                      (grads["blocks"]["ln1"], plain["blocks"]["ln1"]),
+                      (grads["blocks"]["ln2"], plain["blocks"]["ln2"])):
+        assert float(got.abs().max()) > 0
+        ok, err = _bwd_close(got, want, 2e-2)
+        assert ok, err
+
+
 @pytest.mark.cuda
 def test_rmsnorm_kernel_rejects_what_it_does_not_take(cuda):
     w = torch.ones(12, device=cuda)

@@ -20,6 +20,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.data import synth as tsynth
 from repro_torch.launch import serve
 from repro_torch.models import convert
+from repro_torch.train import steps as tsteps
 
 REL_TOL = 3e-2     # as tests/test_torch_model.py: bf16 in both packages
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
@@ -44,15 +45,54 @@ def _reference_serve(cfg, params, prompts, gen_tokens):
             np.stack([np.asarray(x, np.float32) for x in all_logits], 1))
 
 
+def _teacher_forced_logits(cfg, params, prompts, ref_tokens, max_len):
+    """Every step's logits of the port's own prefill and decode, fed the
+    reference's greedy tokens (not its own), so each step sees the
+    reference's input: (B, steps, V) fp32, step 0 the prefill's."""
+    with torch.inference_mode():
+        logits, cache = tsteps.prefill_step(
+            cfg, params, {"tokens": torch.as_tensor(np.asarray(prompts))},
+            max_len=max_len)
+        out = [logits]
+        for i in range(ref_tokens.shape[1] - 1):
+            token = torch.tensor(np.asarray(ref_tokens[:, i:i + 1]),
+                                 dtype=torch.int32)
+            logits, cache = tsteps.decode_step(cfg, params, token, cache)
+            out.append(logits)
+    return np.stack([t.float().numpy() for t in out], 1)
+
+
+def assert_every_step_and_clear_tokens_match(ref_tokens, ref_logits, forced,
+                                             got_tokens):
+    """The weight-independent verdict of a greedy serving run: every
+    step's teacher-forced logits within REL_TOL of the reference's, relative
+    to the step's max |logit|; and per row, the run's own greedy tokens
+    equal the reference's up to the first step where the reference's
+    top-1/top-2 gap is within REL_TOL (there bf16 rounding may pick the
+    other token, and the two continuations part)."""
+    for step in range(ref_logits.shape[1]):
+        want = ref_logits[:, step]
+        err = np.abs(want - forced[:, step]).max() / np.abs(want).max()
+        assert err < REL_TOL, (step, err)
+    top2 = np.sort(ref_logits, -1)[..., -2:]
+    margin = (top2[..., 1] - top2[..., 0]) / np.abs(ref_logits).max(-1)
+    for row in range(ref_tokens.shape[0]):
+        for step in range(ref_tokens.shape[1]):
+            if margin[row, step] <= REL_TOL:
+                break
+            assert int(got_tokens[row, step]) == int(ref_tokens[row, step]), (
+                row, step)
+
+
 def test_lm_tokens_match_reference():
     assert np.array_equal(tsynth.lm_tokens(3, 1000, 512),
                           jsynth.lm_tokens(3, 1000, 512))
 
 
 def test_serve_run_on_cpu_gives_the_reference_tokens():
-    """Per sequence, tokens agree up to the first step where the reference's
-    top-1/top-2 gap is within the tolerance (there bf16 rounding may pick
-    the other token, and the two continuations part)."""
+    """Every step's logits, teacher-forced on the reference's tokens, agree
+    with the reference's; per sequence, tokens agree up to the first step
+    where the reference's top-1/top-2 gap is within the tolerance."""
     jcfg = jconfigs.reduced(jconfigs.get("internlm2-1.8b"))
     tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get("internlm2-1.8b")),
                                attn_impl="flash")
@@ -66,18 +106,10 @@ def test_serve_run_on_cpu_gives_the_reference_tokens():
     res = serve.run(tcfg, tparams, prompts, gen, device="cpu")
     assert res.tokens.shape == (b, gen) and res.tokens.dtype == torch.int32
     assert res.prefill_s > 0 and res.decode_s > 0
-    out = res.tokens.numpy()
-
-    top2 = np.sort(ref_logits, -1)[..., -2:]
-    margin = (top2[..., 1] - top2[..., 0]) / np.abs(ref_logits).max(-1)
-    checked = 0
-    for row in range(b):
-        for step in range(gen):
-            if margin[row, step] <= REL_TOL:
-                break
-            assert out[row, step] == ref_tokens[row, step], (row, step)
-            checked += 1
-    assert checked >= b        # at least one clear step per row on average
+    forced = _teacher_forced_logits(tcfg, tparams, prompts, ref_tokens,
+                                    s + gen)
+    assert_every_step_and_clear_tokens_match(ref_tokens, ref_logits, forced,
+                                             res.tokens.numpy())
     first = ref_logits[:, 0]
     err = np.abs(first - res.prefill_logits.float().numpy()).max()
     assert err / np.abs(first).max() < REL_TOL
@@ -107,11 +139,18 @@ CORE_MODULES = ("tree", "dag", "workflow", "signature", "oep", "omp", "costs",
                 "session")
 
 
+TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedules",
+                 "repro_torch.train.steps", "repro_torch.data.pipeline",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
+                 "repro_torch.launch.bench_tier", "repro_torch.workflows")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
-    cannot slip past; the Helix core's modules are named so that none is
-    missed) and ``chip_smoke`` (without running it), then check that no
-    JAX, ml_dtypes or reference module was loaded."""
+    cannot slip past; the Helix core's and the training slice's modules
+    are named so that none is missed) and ``chip_smoke`` (without running
+    it), then check that no JAX, ml_dtypes or reference module was
+    loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -122,6 +161,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert 'repro_torch.kernels.ssd.ops' in mods, mods\n"
         f"core = {['repro_torch.core.' + m for m in CORE_MODULES]!r}\n"
         "assert set(core) <= set(mods), sorted(set(core) - set(mods))\n"
+        f"train = {list(TRAIN_MODULES)!r}\n"
+        "assert set(train) <= set(mods), sorted(set(train) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "

@@ -40,7 +40,8 @@ from repro_torch.models import ssd as tssd
 from repro_torch.models.params import tree_map
 from repro_torch.train import steps as tsteps
 
-from test_torch_serve import _reference_serve
+from test_torch_serve import (_reference_serve, _teacher_forced_logits,
+                              assert_every_step_and_clear_tokens_match)
 
 REL_TOL = 3e-2
 ARCH = "mamba2-130m"
@@ -428,24 +429,18 @@ def test_port_prefill_decode_consistent_with_forward(mamba):
 
 
 def test_serve_run_on_cpu_gives_the_reference_tokens(mamba):
-    """As ``test_torch_serve.py``'s dense case: per sequence, tokens agree
-    up to the first step where the reference's top-1/top-2 gap is within
-    the tolerance."""
+    """As ``test_torch_serve.py``'s dense case: every step's logits,
+    teacher-forced on the reference's tokens, agree with the reference's;
+    per sequence, tokens agree up to the first step where the reference's
+    top-1/top-2 gap is within the tolerance."""
     jcfg, tcfg, jparams, tparams = mamba
     b, s, gen = 8, 20, 10
     prompts = tsynth.lm_tokens(0, b * s + 1, jcfg.vocab_size)[:b * s].reshape(b, s)
     ref_tokens, ref_logits = _reference_serve(jcfg, jparams, prompts, gen)
     res = serve.run(tcfg, tparams, prompts, gen, device="cpu")
     assert res.tokens.shape == (b, gen) and res.tokens.dtype == torch.int32
-    out = res.tokens.numpy()
-    top2 = np.sort(ref_logits, -1)[..., -2:]
-    margin = (top2[..., 1] - top2[..., 0]) / np.abs(ref_logits).max(-1)
-    checked = 0
-    for row in range(b):
-        for step in range(gen):
-            if margin[row, step] <= REL_TOL:
-                break
-            assert out[row, step] == ref_tokens[row, step], (row, step)
-            checked += 1
-    assert checked >= b
+    forced = _teacher_forced_logits(tcfg, tparams, prompts, ref_tokens,
+                                    s + gen)
+    assert_every_step_and_clear_tokens_match(ref_tokens, ref_logits, forced,
+                                             res.tokens.numpy())
     assert rel_err(ref_logits[:, 0], res.prefill_logits) < REL_TOL
