@@ -14,7 +14,9 @@ Phases (any failure exits non-zero; none is caught and passed over):
      computing the same function (a yardstick the port never calls), each
      with a cold L2; for flash also print the achieved TFLOP/s, the share
      of its bound and the ratio to the library's time; for RMSNorm also the
-     wrapper's host µs per call beside the library call's;
+     wrapper's host µs per call beside the library call's; for the RMSNorm
+     backward the device kernels a call runs (one), and the library's
+     backward timed as a CUDA-graph replay (its device time);
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
@@ -217,17 +219,37 @@ def check_rmsnorm(dev, timer, peaks):
     return out
 
 
+def device_kernels(fn):
+    """({kernel name: device µs}, {kernel name: launches}) of one call of
+    ``fn`` (after a call that warms it up), from ``torch.profiler``."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _kernel_times(prof)
+
+
 def check_rmsnorm_bwd(dev, timer, peaks):
-    """The backward kernel pair against ``rmsnorm_bwd_ref``: dx and dw,
-    each relative to max(1, its max |ref|) (dw sums one term a row), at
-    2e-2 (bf16 dx) and 2e-5 (fp32 dx, and dw for either); then timed at
-    the train shape, beside the plain version and the library's backward
-    (``torch.autograd.grad`` through ``F.rms_norm``, the graph kept)."""
+    """The backward kernel against ``rmsnorm_bwd_ref``: dx and dw, each
+    relative to max(1, its max |ref|) (dw sums one term a row), at 2e-2
+    (bf16 dx) and 2e-5 (fp32 dx, and dw for either); the device kernels one
+    call runs at the train shapes (one: no fill, no second pass); then
+    timed at internlm2's train shape, beside the plain version and the
+    library's backward (``torch.autograd.grad`` through ``F.rms_norm``),
+    with both's kernel durations from the profiler beside.
+    The library's call is captured once in a CUDA graph and its replay
+    timed (``library_ms``: its kernels' device time, one host call well
+    inside the timer's spin); the eager call, whose autograd dispatch
+    outlasts the spin, is kept as ``library_host_ms``."""
     from repro_torch.kernels.rmsnorm import ops, ref
     g = torch.Generator(device=dev).manual_seed(4)
     train = (BATCH * PROMPT, 2048)
+    lm = (8 * 64, 128)      # the LM workflow's rows (LMKnobs: 8 x 64, D 128)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8), (2049, 776), train,
-              (BATCH, PROMPT, 2048)]
+              (BATCH, PROMPT, 2048), (257, 2048), lm, (600, 8192)]
     out = None
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -239,13 +261,25 @@ def check_rmsnorm_bwd(dev, timer, peaks):
             torch.cuda.synchronize()
             scale = lambda t: max(1.0, float(t.abs().max()))  # noqa: E731
             ex, ew = max_err(dx, dx_ref), max_err(dw, dw_ref)
-            print(f"rmsnorm_bwd {shape} {dtype}: max_abs_err dx {ex:.3g}, "
-                  f"dw {ew:.3g}")
+            route = ops.plan_bwd(x.numel() // shape[-1], shape[-1],
+                                 x.element_size(), 132).route
+            print(f"rmsnorm_bwd {shape} {dtype} ({route}): max_abs_err dx "
+                  f"{ex:.3g}, dw {ew:.3g}")
             require(ex <= FLASH_TOL[dtype] * scale(dx_ref)
                     and ew <= FLASH_TOL[torch.float32] * scale(dw_ref),
                     ("rmsnorm_bwd", shape, dtype, ex, ew))
             if shape == train and dtype == torch.bfloat16:
                 out = (x, w, dy, max(ex, ew))
+            if shape in (train, lm) and dtype == torch.bfloat16:
+                times, calls = device_kernels(lambda: ops.rmsnorm_bwd(x, w, dy))
+                print(f"rmsnorm_bwd {shape} bf16: {sum(calls.values())} "
+                      f"device kernel(s) a call, "
+                      f"{sum(times.values()) / 1e3:.5f} ms profiled: "
+                      f"{dict(calls)}")
+                require(sum(calls.values()) == 1,
+                        ("rmsnorm_bwd kernels a call", shape, dict(calls)))
+                if shape == train:
+                    profiled_ms = sum(times.values()) / 1e3
     x, w, dy, err = out
     again = ops.rmsnorm_bwd(x, w, dy)[1]
     require(torch.equal(again, ops.rmsnorm_bwd(x, w, dy)[1]),
@@ -254,19 +288,53 @@ def check_rmsnorm_bwd(dev, timer, peaks):
     xl = x.detach().requires_grad_()
     wl = w.to(x.dtype).requires_grad_()
     y_lib = F.rms_norm(xl, (d,), wl, 1e-5)
+    lib_eager = lambda: torch.autograd.grad(  # noqa: E731
+        y_lib, (xl, wl), dy, retain_graph=True)
+    # the graph: leaves and forward made on the capture stream, so that
+    # the backward's kernels (which run on their forward's stream) are
+    # captured there
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        xg = x.detach().clone().requires_grad_()
+        wg = w.to(x.dtype).requires_grad_()
+        y_side = F.rms_norm(xg, (d,), wg, 1e-5)
+        for _ in range(2):
+            torch.autograd.grad(y_side, (xg, wg), dy, retain_graph=True)
+    torch.cuda.current_stream().wait_stream(side)
+    lib_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(lib_graph, stream=side):
+        dx_g, dw_g = torch.autograd.grad(y_side, (xg, wg), dy,
+                                         retain_graph=True)
+    lib_graph.replay()
+    torch.cuda.synchronize()
+    dx_e, dw_e = lib_eager()
+    require(torch.equal(dx_g, dx_e) and torch.equal(dw_g, dw_e),
+            "the library backward's graph replay differs from its eager call")
+    lib_times, lib_calls = device_kernels(lib_eager)
+    print(f"rmsnorm_bwd {tuple(x.shape)} bf16, library backward's device "
+          f"kernels: {sum(lib_times.values()) / 1e3:.5f} ms in "
+          f"{sum(lib_calls.values())} kernel(s)")
+    for name, us in lib_times.most_common():
+        print(f"  {us / 1e3:9.5f} ms {lib_calls[name]:3d}x  {name[:110]}")
     nbytes = 3 * x.numel() * x.element_size() + 2 * d * 4  # x, dy; dx; w; dw
     flops = 12 * x.numel()      # g, x², g·x, dx (4), dw (3), fp32
     t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[2] * 1e3
     row = {"ms": timer(lambda: ops.rmsnorm_bwd(x, w, dy)),
            "plain_ms": timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
-           "library_ms": timer(lambda: torch.autograd.grad(
-               y_lib, (xl, wl), dy, retain_graph=True)),
+           "library_ms": timer(lib_graph.replay),
+           "library_host_ms": timer(lib_eager),
+           # kernel durations alone, from torch.profiler (no launch)
+           "profiled_ms": profiled_ms,
+           "library_profiled_ms": sum(lib_times.values()) / 1e3,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "max_abs_err": err}
     print(f"rmsnorm_bwd {tuple(x.shape)} bf16: " + json.dumps(row)
           + f" ({nbytes / 1e6:.1f} MB; {row['bound_ms'] / row['ms']:.1%} of "
-          f"its bound, {row['ms'] / row['library_ms']:.2f}x the library's time)")
+          f"its bound, {row['ms'] / row['library_ms']:.2f}x the library's "
+          f"device time)")
+    del lib_graph
     return row
 
 

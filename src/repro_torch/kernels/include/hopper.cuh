@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the port's tensor-core kernels
-// (flash_attention.cu, ssd.cu): mbarriers, TMA tile loads, wgmma in raw
-// PTX, and the host-side tensor-map encoder.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (flash_attention.cu, ssd.cu, rmsnorm.cu's backward): mbarriers, TMA tile
+// loads and bulk copies, wgmma in raw PTX, and the host-side tensor-map
+// encoder.
 //
 // Shared-memory tiles are stored as TMA writes them with 128-byte swizzle
 // (64-byte at 32-element rows): column blocks of 64 bf16 (128-byte rows),
@@ -88,6 +89,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
          "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---- bulk copy: `bytes` contiguous bytes of global memory into shared
+// memory, completion on `bar`. Both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

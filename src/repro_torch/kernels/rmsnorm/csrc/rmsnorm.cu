@@ -32,16 +32,31 @@
 //   dx = r * (g - x * r^2 * mean(g * x)),   dw = sum over rows of dy * x * r.
 // r is recomputed from x, so the forward saves nothing extra. Bound: bytes
 // (x and dy read, dx written: 25.2 MB at (2048, 2048) bf16, ~7.5 us at
-// 3.35 TB/s). Each block takes a stripe of rows, walks them one at a time
-// with the next row's x and dy loads in flight, reduces sum(x^2) and
-// sum(g x) through warp shuffles and one double-buffered shared array (one
-// barrier a row), and keeps its columns' share of dw in registers; at the
-// end it writes an fp32 partial row of dw (n_blocks, D). A second kernel
-// sums the partials over the blocks in a fixed order, so dw has the same
-// bits on every run (no atomics). A thread holds up to 8 vectors of a row.
+// 3.35 TB/s). One cooperative launch does it all, with no fill: a
+// persistent grid (as many blocks as can be resident, at most the plan's)
+// walks the rows, each block writes one fp32 partial row of dw, the grid
+// syncs, and each block sums a slice of dw's columns over the partial rows
+// in a fixed order, so dw has the same bits on every run of one plan (no
+// atomics). Two routes of the walk, picked on the host (ops.py `plan_bwd`):
+//  * ring (D <= 16384 in bf16, 8192 in fp32; every train path): a group of
+//    warps owns a row, at most 4 vectors a lane, so w and the lane's share
+//    of dw stay in registers; rows of x and dy reach shared memory through
+//    bulk copies (cp.async.bulk on an mbarrier) into a ring of slots that
+//    each group refills ahead (a slot's first row goes out when the slot
+//    before it has landed, so an SM's rows arrive one after another and
+//    its compute is not all left to the end). A one-warp group reduces the
+//    row sums through shuffles alone; a larger one adds one named barrier
+//    of the group a row; no block barrier a row. At (2048, 2048) bf16: 4
+//    groups of 2 warps a block, 2 slots a group, up to 64 KB of rows in
+//    flight an SM;
+//  * stripe (wider rows, 8 vectors a thread): a block owns a row in
+//    registers, the next row's loads in flight, one barrier a row.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "../../include/hopper.cuh"
 
 namespace {
 
@@ -184,23 +199,266 @@ int launch(const void* x, const void* w, void* y, int n_rows, int d,
 
 
 // ---------------------------------------------------------------- backward
-constexpr int kMaxBwdVecs = 8;     // 16-byte vectors of a row a thread holds
-constexpr int kColTile = 32;       // dw reduce: columns a block
-constexpr int kRowSlices = 8;      // dw reduce: partial rows summed in parallel
+namespace cg = cooperative_groups;
 
+constexpr int kRouteRing = 0;      // ops.py ROUTES
+constexpr int kRouteStripe = 1;
+constexpr int kRingVecs = 4;       // ring route: 16-byte vectors of a row a lane holds
+constexpr int kMaxBwdVecs = 8;     // stripe route: 16-byte vectors a thread holds
+
+struct BwdArgs {
+  const void* x;
+  const float* w;
+  const void* dy;
+  void* dx;
+  float* partial;    // (gridDim.x, d) fp32: one partial row of dw a block
+  float* dw;
+  int n_rows;
+  int d;
+  int group;         // ring route: warps a row (a power of two, at most 16)
+  int stages;        // ring route: rows of x and dy a group has staged
+  float eps;
+};
+
+__device__ __forceinline__ void add4(float4& s, float4 t) {
+  s.x += t.x; s.y += t.y; s.z += t.z; s.w += t.w;
+}
+
+// Once every block has written its partial row (after the grid sync):
+// dw[c] = the sum over the partial rows j of partial[j, c], in a fixed
+// order. Block b takes the b-th slice of the columns, 4 at a time. Within
+// a warp, `lanes` lanes (a power of two, at most 32, no more than the
+// partial rows need) share a group of 4 columns: lane i of them adds the
+// partial rows i, i + lanes, ... in order (their loads issued 8 at a time,
+// so up to 8 x 32 partial rows cost one round trip to L2), then a shuffle
+// tree adds the lanes' sums; the warp's other lanes take the next groups
+// of columns.
+__device__ void sum_partials(const float* __restrict__ partial,
+                             float* __restrict__ dw, int d) {
+  const int quads = d / 4, parts = gridDim.x;
+  const int per = (quads + parts - 1) / parts;
+  const int q0 = blockIdx.x * per, q1 = min(q0 + per, quads);
+  int lanes = 1;
+  while (lanes < parts && lanes < 32) lanes <<= 1;
+  const int lane = threadIdx.x & 31, sub = lane % lanes;
+  const int step = (blockDim.x >> 5) * (32 / lanes);  // column groups a block-wide pass
+  const float4* p = reinterpret_cast<const float4*>(partial);
+  for (int qb = q0 + (threadIdx.x >> 5) * (32 / lanes); qb < q1; qb += step) {
+    const int q = qb + lane / lanes;        // warp-uniform loop: every lane shuffles
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j0 = sub; q < q1 && j0 < parts; j0 += 8 * lanes) {
+      float4 t[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int j = j0 + i * lanes;
+        t[i] = j < parts ? __ldcg(p + static_cast<size_t>(j) * quads + q)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) add4(s, t[i]);
+    }
+    for (int o = lanes >> 1; o > 0; o >>= 1) {
+      s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+      s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+      s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+      s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+    }
+    if (q < q1 && sub == 0) reinterpret_cast<float4*>(dw)[q] = s;
+  }
+}
+
+// Waits until the `threads` threads of named barrier `id` have arrived.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// The ring route (rows of up to 16 x 4 x 32 vectors: D <= 16384 in bf16,
+// 8192 in fp32). A group of `group` warps owns a row: lane l of warp k of
+// it holds the vectors (32 k + l) + 32 group j, j < NV <= kRingVecs, of
+// the row, their w and their share of dw in registers (w read once). Group
+// g of the grid takes rows g, g + G, g + 2G, ... (G groups in the grid).
+// Each group has a ring of `stages` slots in shared memory, each holding
+// one row of x and one of dy; the group's first lane fills a slot with two
+// bulk copies completing on the slot's `full` mbarrier (the first slot at
+// once, each further one when the slot before it has landed), and refills
+// it with the group's row `stages` ahead once every warp of the group has
+// arrived on the slot's `empty` mbarrier. Both passes over a row read it
+// from the slot. A warp reduces the row sums through shuffles; a group of
+// more than one warp adds its warps' sums through shared memory (double
+// buffered by row parity) after one named barrier of the group. At the
+// end each group writes its dw share into its slots, the block sums the
+// groups' shares in group order into its partial row, the grid syncs, and
+// sum_partials adds the partial rows.
+// Smem: [groups x stages slots of 2 rows][full mbarriers][empty mbarriers]
+// [row sums: a warp's 2 parities x 2 floats] (ops.py `_ring_smem`).
+template <typename T, int NV>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rmsnorm_bwd_ring(BwdArgs a) {
+  constexpr int V = 16 / sizeof(T);
+  using R = typename Raw<T>::type;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int d = a.d, n_rows = a.n_rows, S = a.stages, G = a.group;
+  const int vecs = d / V;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_groups = (blockDim.x >> 5) / G, grp = warp / G, k = warp % G;
+  const uint32_t row_bytes = static_cast<uint32_t>(d) * sizeof(T);
+  const uint32_t slot = 2u * row_bytes, group_bytes = S * slot;
+  unsigned char* ring = smem + grp * group_bytes;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + n_groups * group_bytes);
+  uint64_t* full = bars + grp * S;
+  uint64_t* empty = bars + (n_groups + grp) * S;
+  float* sums = reinterpret_cast<float*>(bars + 2 * n_groups * S);
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.dx);
+  const int first = blockIdx.x * n_groups + grp;
+  const int stride = gridDim.x * n_groups;
+  const bool leader = k == 0 && lane == 0;
+
+  auto fetch = [&](int s, int row) {         // the leader: the row into slot s
+    const uint32_t b = hopper::smem_u32(full + s);
+    const uint32_t dst = hopper::smem_u32(ring + s * slot);
+    const size_t off = static_cast<size_t>(row) * d;
+    hopper::mbar_expect_tx(b, slot);
+    hopper::bulk_load(dst, x + off, row_bytes, b);
+    hopper::bulk_load(dst + row_bytes, dy + off, row_bytes, b);
+  };
+  if (leader) {                              // the first row goes out first
+    for (int s = 0; s < S; ++s) {
+      hopper::mbar_init(hopper::smem_u32(full + s), 1);
+      hopper::mbar_init(hopper::smem_u32(empty + s), G);
+    }
+    hopper::mbar_init_fence();
+    if (first < n_rows) fetch(0, first);
+  }
+  float wv[NV][V], acc[NV][V];
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = 32 * k + lane + 32 * G * j;
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[j][i] = 0.f;
+    if (v < vecs) {
+#pragma unroll
+      for (int i = 0; i < V; i += 4) widen(load_raw(a.w + v * V + i), wv[j] + i);
+    }
+  }
+  __syncthreads();                           // the mbarriers are initialised
+
+  int it = 0;
+  for (int row = first; row < n_rows; row += stride, ++it) {
+    const int s = it % S;
+    const uint32_t phase = (it / S) & 1;
+    hopper::mbar_wait(hopper::smem_u32(full + s), phase);
+    // the next slot's first row goes out once this one has landed: an
+    // SM's rows then arrive one after another and its compute starts
+    // early, instead of every row landing, and being computed, at the end
+    if (leader && it + 1 < S && row + stride < n_rows) fetch(it + 1, row + stride);
+    const R* xs = reinterpret_cast<const R*>(ring + s * slot);
+    const R* gs = reinterpret_cast<const R*>(ring + s * slot + row_bytes);
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = 32 * k + lane + 32 * G * j;
+      if (v < vecs) {
+        float xf[V], df[V];
+        widen(xs[v], xf);
+        widen(gs[v], df);
+        float p = 0.f, t = 0.f;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          p += xf[i] * xf[i];
+          t += (df[i] * wv[j][i]) * xf[i];
+        }
+        ss += p;
+        sg += t;
+      }
+    }
+    ss = warp_sum(ss);
+    sg = warp_sum(sg);
+    if (G > 1) {                             // the group's warps, in order
+      float* mine = sums + 4 * warp + 2 * (it & 1);
+      if (lane == 0) {
+        mine[0] = ss;
+        mine[1] = sg;
+      }
+      named_sync(1 + grp, 32 * G);
+      const float* all = sums + 4 * grp * G + 2 * (it & 1);
+      ss = 0.f;
+      sg = 0.f;
+      for (int i = 0; i < G; ++i) {
+        ss += all[4 * i];
+        sg += all[4 * i + 1];
+      }
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + a.eps);
+    const float rr = r * r, mgx = sg / static_cast<float>(d);
+    T* dxr = dx + static_cast<size_t>(row) * d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = 32 * k + lane + 32 * G * j;
+      if (v < vecs) {
+        float xf[V], df[V], o[V];
+        widen(xs[v], xf);
+        widen(gs[v], df);
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          o[i] = r * (df[i] * wv[j][i] - (xf[i] * rr) * mgx);
+          acc[j][i] += df[i] * (xf[i] * r);
+        }
+        store_vec(dxr + v * V, o);
+      }
+    }
+    __syncwarp();                            // every lane is done with slot s
+    if (lane == 0) hopper::mbar_arrive(hopper::smem_u32(empty + s));
+    const int next = row + S * stride;
+    if (leader && next < n_rows) {
+      hopper::mbar_wait(hopper::smem_u32(empty + s), phase);
+      hopper::fence_proxy_async();
+      fetch(s, next);
+    }
+  }
+
+  // The group's dw share into its slots (d fp32 fit in one slot), then the
+  // block's partial row: the groups' shares summed in group order.
+  __syncthreads();                           // every slot has been read
+  float* share = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int v = 32 * k + lane + 32 * G * j;
+    if (v < vecs) {
+#pragma unroll
+      for (int i = 0; i < V; i += 4) store_vec(share + v * V + i, acc[j] + i);
+    }
+  }
+  __syncthreads();
+  float* part = a.partial + static_cast<size_t>(blockIdx.x) * d;
+  for (int c = threadIdx.x * 4; c < d; c += blockDim.x * 4) {
+    float4 t = *reinterpret_cast<const float4*>(smem + c * 4);
+    for (int g = 1; g < n_groups; ++g)
+      add4(t, *reinterpret_cast<const float4*>(smem + g * group_bytes + c * 4));
+    *reinterpret_cast<float4*>(part + c) = t;
+  }
+  cg::this_grid().sync();
+  sum_partials(a.partial, a.dw, d);
+}
+
+// The stripe route (wider rows): a block owns a row, a thread kMaxBwdVecs
+// vectors of it in registers; block b takes rows b, b + grid, ..., with
+// the next row's loads in flight, one barrier a row for the block-wide
+// sums, and writes its partial row from registers; then the grid syncs and
+// sum_partials adds the partial rows.
 template <typename T, int NV>
 __global__ void __launch_bounds__(kMaxThreads)
-rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                   const T* __restrict__ dy, T* __restrict__ dx,
-                   float* __restrict__ dw_partial, int n_rows, int d,
-                   int rows_per_block, float eps) {
+rmsnorm_bwd_stripe(BwdArgs a) {
   constexpr int V = 16 / sizeof(T);
   using R = typename Raw<T>::type;
   __shared__ float partial[2][2][32];       // [row parity][sum x^2, sum g x][warp]
+  const int d = a.d, n_rows = a.n_rows;
   const int step = blockDim.x * V;
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(r0 + rows_per_block, n_rows);
   const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.dx);
 
   float wv[NV][V], acc[NV][V];
 #pragma unroll
@@ -210,29 +468,32 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     for (int i = 0; i < V; ++i) acc[k][i] = 0.f;
     if (c < d) {
 #pragma unroll
-      for (int i = 0; i < V; i += 4) widen(load_raw(w + c + i), wv[k] + i);
+      for (int i = 0; i < V; i += 4) widen(load_raw(a.w + c + i), wv[k] + i);
     }
   }
 
   R xv[NV], gv[NV];
+  const int r0 = blockIdx.x;                 // the grid is never wider than n_rows
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = threadIdx.x * V + k * step;
-    if (r0 < r1 && c < d) {
+    if (r0 < n_rows && c < d) {
       xv[k] = load_raw(x + static_cast<size_t>(r0) * d + c);
       gv[k] = load_raw(dy + static_cast<size_t>(r0) * d + c);
     }
   }
-  for (int row = r0; row < r1; ++row) {
+  int par = 0;
+  for (int row = r0; row < n_rows; row += gridDim.x, par ^= 1) {
     const size_t base = static_cast<size_t>(row) * d;
+    const size_t nbase = static_cast<size_t>(row + gridDim.x) * d;
     R xn[NV], gn[NV];                       // the next row, in flight
-    const bool more = row + 1 < r1;
+    const bool more = row + static_cast<int>(gridDim.x) < n_rows;
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
       const int c = threadIdx.x * V + k * step;
       if (more && c < d) {
-        xn[k] = load_raw(x + base + d + c);
-        gn[k] = load_raw(dy + base + d + c);
+        xn[k] = load_raw(x + nbase + c);
+        gn[k] = load_raw(dy + nbase + c);
       }
     }
     float ss = 0.f, sg = 0.f;
@@ -254,7 +515,6 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     }
     ss = warp_sum(ss);
     sg = warp_sum(sg);
-    const int par = (row - r0) & 1;
     if ((threadIdx.x & 31) == 0) {
       partial[par][0][warp] = ss;
       partial[par][1][warp] = sg;
@@ -266,7 +526,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       ss += partial[par][0][i];
       sg += partial[par][1][i];
     }
-    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float r = rsqrtf(ss / static_cast<float>(d) + a.eps);
     const float rr = r * r, mgx = sg / static_cast<float>(d);
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
@@ -289,7 +549,7 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       gv[k] = gn[k];
     }
   }
-  float* pr = dw_partial + static_cast<size_t>(blockIdx.x) * d;
+  float* pr = a.partial + static_cast<size_t>(blockIdx.x) * d;
 #pragma unroll
   for (int k = 0; k < NV; ++k) {
     const int c = threadIdx.x * V + k * step;
@@ -298,60 +558,32 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
       for (int i = 0; i < V; i += 4) store_vec(pr + c + i, acc[k] + i);
     }
   }
+  cg::this_grid().sync();
+  sum_partials(a.partial, a.dw, d);
 }
 
-// dw[c] = sum over the partial rows j of partial[j, c], in a fixed order:
-// slice s sums rows s, s + kRowSlices, ..., then slice 0 adds the slices.
-__global__ void __launch_bounds__(kColTile * kRowSlices)
-rmsnorm_dw_reduce(const float* __restrict__ partial, float* __restrict__ dw,
-                  int n_parts, int d) {
-  __shared__ float part[kRowSlices][kColTile];
-  const int col = blockIdx.x * kColTile + threadIdx.x;
-  float s = 0.f;
-  if (col < d)
-    for (int j = threadIdx.y; j < n_parts; j += kRowSlices)
-      s += partial[static_cast<size_t>(j) * d + col];
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < d) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < kRowSlices; ++i) t += part[i][threadIdx.x];
-    dw[col] = t;
-  }
-}
+using BwdKernel = void (*)(BwdArgs);
 
-template <typename T, int NV>
-int launch_bwd_nv(const void* x, const void* w, const void* dy, void* dx,
-                  void* dw_partial, void* dw, int n_rows, int d, float eps,
-                  int threads, int rows_per_block, cudaStream_t stream) {
-  const int n_parts = (n_rows + rows_per_block - 1) / rows_per_block;
-  rmsnorm_bwd_kernel<T, NV><<<n_parts, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(w),
-      static_cast<const T*>(dy), static_cast<T*>(dx),
-      static_cast<float*>(dw_partial), n_rows, d, rows_per_block, eps);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_dw_reduce<<<(d + kColTile - 1) / kColTile, dim3(kColTile, kRowSlices),
-                      0, stream>>>(static_cast<const float*>(dw_partial),
-                                   static_cast<float*>(dw), n_parts, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The kernel of a route at NV vectors a thread; null for a pair that is
+// not built (ring: NV <= kRingVecs; stripe: NV == kMaxBwdVecs, the only
+// count a row too wide for the ring gives).
 template <typename T>
-int launch_bwd(const void* x, const void* w, const void* dy, void* dx,
-               void* dw_partial, void* dw, int n_rows, int d, float eps,
-               int threads, int rows_per_block, cudaStream_t stream) {
-  const int vecs = d / (16 / static_cast<int>(sizeof(T)));
-  const int per_thread = (vecs + threads - 1) / threads;
-#define RMSNORM_BWD(NV) launch_bwd_nv<T, NV>(x, w, dy, dx, dw_partial, dw, \
-    n_rows, d, eps, threads, rows_per_block, stream)
-  if (per_thread <= 1) return RMSNORM_BWD(1);
-  if (per_thread <= 2) return RMSNORM_BWD(2);
-  if (per_thread <= 4) return RMSNORM_BWD(4);
-  if (per_thread <= kMaxBwdVecs) return RMSNORM_BWD(8);
-#undef RMSNORM_BWD
-  return static_cast<int>(cudaErrorInvalidValue);
+BwdKernel bwd_kernel(int route, int nv) {
+  if (route == kRouteRing) {
+    switch (nv) {
+      case 1: return rmsnorm_bwd_ring<T, 1>;
+      case 2: return rmsnorm_bwd_ring<T, 2>;
+      case kRingVecs: return rmsnorm_bwd_ring<T, kRingVecs>;
+    }
+  } else if (route == kRouteStripe && nv == kMaxBwdVecs) {
+    return rmsnorm_bwd_stripe<T, kMaxBwdVecs>;
+  }
+  return nullptr;
+}
+
+BwdKernel bwd_kernel(int is_bf16, int route, int nv) {
+  return is_bf16 ? bwd_kernel<__nv_bfloat16>(route, nv)
+                 : bwd_kernel<float>(route, nv);
 }
 
 }  // namespace
@@ -371,25 +603,60 @@ int rmsnorm_fwd(const void* x, const void* w, void* y, int n_rows, int d,
                  : launch<float>(x, w, y, n_rows, d, eps, threads, s);
 }
 
+// Blocks of the backward kernel of (is_bf16, route, nv) that can be
+// resident on one SM at `threads` threads and `smem` bytes of dynamic
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), after
+// letting the kernel use the device's opt-in shared memory; the wrapper
+// asks once per plan, before the plan's first launch, and sizes the grid
+// from it. Returns -(cudaError_t) on an error.
+int rmsnorm_bwd_blocks_per_sm(int is_bf16, int route, int nv, int threads,
+                              int smem) {
+  const BwdKernel k = bwd_kernel(is_bf16, route, nv);
+  if (!k) return -static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0, blocks = 0;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, k);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(attr.sharedSizeBytes));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(e);
+  }
+  return blocks;
+}
+
 // x, dy, dx: (n_rows, d) contiguous, fp32 (is_bf16 = 0) or bf16 (1); w:
-// (d,) fp32; dw: (d,) fp32; dw_partial: fp32 scratch of
-// ceil(n_rows / rows_per_block) rows of d, which the wrapper allocates.
-// `threads` a block (a multiple of 32, at most 512, holding a row in at
-// most 8 vectors a thread) and `rows_per_block` come from ops.py
-// `plan_bwd`. Launches the row kernel, then the dw reduction, on `stream`.
-// Returns the first launch error (0 = both launched).
+// (d,) fp32; dw: (d,) fp32, every column written; partial: fp32 scratch of
+// `grid` rows of d. The geometry (route, nv, threads, group, stages, smem,
+// grid) is ops.py `plan_bwd`'s, the grid at most what
+// rmsnorm_bwd_blocks_per_sm allows: one cooperative launch on `stream`
+// (the dw sum syncs the grid). Returns the launch's cudaError_t (0 =
+// launched).
 int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx,
-                void* dw_partial, void* dw, int n_rows, int d, float eps,
-                int is_bf16, int threads, int rows_per_block, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
-      rows_per_block < 1 || n_rows < 1)
+                void* partial, void* dw, int n_rows, int d, float eps,
+                int is_bf16, int route, int nv, int threads, int group,
+                int stages, int smem, int grid, void* stream) {
+  const BwdKernel k = bwd_kernel(is_bf16, route, nv);
+  const bool ring = route == kRouteRing;
+  if (!k || threads < 32 || threads > kMaxThreads || threads % 32 ||
+      grid < 1 || n_rows < 1 ||
+      (ring && (stages < 1 || group < 1 || (threads / 32) % group)))
     return static_cast<int>(cudaErrorInvalidValue);
-  return is_bf16 ? launch_bwd<__nv_bfloat16>(x, w, dy, dx, dw_partial, dw,
-                                             n_rows, d, eps, threads,
-                                             rows_per_block, s)
-                 : launch_bwd<float>(x, w, dy, dx, dw_partial, dw, n_rows, d,
-                                     eps, threads, rows_per_block, s);
+  BwdArgs a{x, static_cast<const float*>(w), dy, dx,
+            static_cast<float*>(partial), static_cast<float*>(dw), n_rows, d,
+            group, stages, eps};
+  void* args[] = {&a};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(k), dim3(grid), dim3(threads), args,
+      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 const char* kernel_error_string(int code) {

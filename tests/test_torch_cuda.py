@@ -91,12 +91,14 @@ def test_rmsnorm_kernel_matches_plain_at_each_block_size(cuda, shape, dtype):
 
 
 # (rows, D) of the backward: the train shape of internlm2-1.8b (batch 4 x
-# 512), odd row counts (one row, fewer rows than blocks, stripes with a
-# ragged last one), part-filled warps, several vectors a thread, and the
-# widest D the repo's configs have
+# 512), odd row counts (one row, fewer rows than warps, a grid whose warps
+# end on different row counts), part-filled warps, several vectors a
+# thread, the widest D the repo's configs have, groups of 4 to 16 warps a
+# row, rows too wide for the ring in fp32 (the stripe route), and the LM
+# workflow's D 128 at more rows than groups (two ring stages a group)
 RMSNORM_BWD_CASES = [
     (2048, 2048), (1, 2048), (3, 2048), (257, 96), (2049, 776), (8, 128),
-    (5, 8), (600, 8192), (33, 12288), (1000, 2056),
+    (5, 8), (600, 8192), (33, 12288), (1000, 2056), (257, 2048), (4096, 128),
 ]
 
 
@@ -142,6 +144,58 @@ def test_rmsnorm_bwd_dw_is_the_same_bits_on_every_run(cuda, dtype):
     runs = [trn_ops.rmsnorm_bwd(x, w, dy) for _ in range(3)]
     for dx, dw in runs[1:]:
         assert torch.equal(dw, runs[0][1]) and torch.equal(dx, runs[0][0])
+
+
+def _bwd_inputs(shape, dtype, seed, dev):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x, dy = (torch.randn(shape, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    return x, torch.randn(shape[-1:], generator=g, device=dev), dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 2048), (4096, 128), (600, 8192),
+                                   (4, 32768)], ids=str)
+def test_rmsnorm_bwd_replays_in_a_cuda_graph(cuda, shape):
+    """The cooperative launch captured in a CUDA graph and replayed on new
+    inputs: the same bits as an eager call on them, on the ring (groups of
+    2, 1 and 8 warps) and the stripe route."""
+    x, w, dy = _bwd_inputs(shape, torch.bfloat16, 5, cuda)
+    trn_ops.rmsnorm_bwd(x, w, dy)           # plans the shape outside capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        trn_ops.rmsnorm_bwd(x, w, dy)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dx, dw = trn_ops.rmsnorm_bwd(x, w, dy)
+    x2, w2, dy2 = _bwd_inputs(shape, torch.bfloat16, 6, cuda)
+    for t, new in ((x, x2), (w, w2), (dy, dy2)):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    dx_eager, dw_eager = trn_ops.rmsnorm_bwd(x2, w2, dy2)
+    assert torch.equal(dx, dx_eager) and torch.equal(dw, dw_eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2048, 2048), (512, 128)], ids=str)
+def test_rmsnorm_bwd_runs_one_kernel_a_call_at_the_train_shapes(cuda, shape):
+    """One device kernel a call on the ring route, and no fill, at the
+    train shape of internlm2-1.8b and the LM workflow's."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    x, w, dy = _bwd_inputs(shape, torch.bfloat16, 7, cuda)
+    assert trn_ops.plan_bwd(*shape, 2, 132).route == "ring"
+    trn_ops.rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trn_ops.rmsnorm_bwd(x, w, dy)
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    assert sum(kernels.values()) == 1, kernels
 
 
 @pytest.mark.cuda
