@@ -56,7 +56,20 @@ Phases (any failure exits non-zero; none is caught and passed over):
      launches no backward), every stored ``TrainState`` (after the warm
      run and after the edit) reloading from disk onto the card bitwise
      equal to the memory tier's copy of what its node computed;
-  8. print one ``{"kernels": [...]}`` line, then the result line
+  8. the paper's four workflows (census, genomics, NLP, MNIST) at their
+     default knobs in Helix sessions on the card, as in the paper's Fig. 5:
+     ``launch.bench_workflows`` runs 10 iterations of each one's edit
+     schedule under NM, AM and OPT (per-iteration wall seconds, cumulative
+     seconds and speedup over NM, nodes computed / loaded / pruned, store
+     bytes, the cold iteration's C(n) of every node); census, genomics and
+     NLP give the same outputs under every policy in every iteration, and
+     MNIST recomputes its random-FFT node in every one. Each deterministic
+     learner runs twice on the card at its workflow's shapes, bitwise
+     equal, and each workflow's values on the card are held against the
+     same workflow run on the CPU. Then the daily-retrain census
+     (``bench_incremental``: delta == cold, in under half its time). No
+     hand-written kernel is on this path: every count must stay 0;
+  9. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -1251,6 +1264,213 @@ def lm_workflow_path(dev):
     return total
 
 
+# ------------------------------------------------------------------ phase 8
+PAPER_FLOWS = ("census", "genomics", "nlp", "mnist")
+PAPER_ITERS = 10
+# each learner on the card against the CPU, as against its JAX twin in
+# tests/test_torch_workflows.py: fp32 that differs only in summation order,
+# relative to max(1, max |CPU value|); a logistic prediction may flip only
+# where the CPU weights' logit is within FLIP_MARGIN of 0
+LEARNER_TOL = 1e-5
+FLIP_MARGIN = 1e-4
+# the nodes whose learners run on the card; the others are numpy on the host
+CARD_NODES = {"census": ("incPred",), "genomics": ("word2vec", "kmeans"),
+              "nlp": ("corenlp", "spouseLR"), "mnist": ("softmax",)}
+
+
+def evaluate_nodes(wf, timings=None):
+    """Every node of ``wf`` run once, in order, outside any session. With
+    ``timings`` (a dict), each node runs under ``torch.profiler`` and its
+    wall seconds, device seconds (kernels and copies) and device launches
+    land there."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from torch.profiler import ProfilerActivity, profile
+    dag = wf.build()
+    vals = {}
+    for name in dag.topological():
+        node = dag.nodes[name]
+        args = [vals[p] for p in node.parents]
+        if timings is None:
+            vals[name] = node.fn(*args)
+            continue
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vals[name] = node.fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        times, calls = _kernel_times(prof)
+        timings[name] = (wall, sum(times.values()) / 1e6, sum(calls.values()))
+    return vals
+
+
+def learner_err(cpu, card, what) -> float:
+    cpu, card = np.asarray(cpu), np.asarray(card)
+    require(cpu.dtype == card.dtype and cpu.shape == card.shape,
+            (what, cpu.dtype, card.dtype, cpu.shape, card.shape))
+    err = float(np.abs(card - cpu).max()) / max(1.0, float(np.abs(cpu).max()))
+    require(err <= LEARNER_TOL, (what, "card vs CPU", err))
+    return err
+
+
+def boundary_flips(X, w_cpu, w_card, what) -> int:
+    """Rows whose logistic prediction differs between the two weights; each
+    must lie within FLIP_MARGIN of the CPU weights' boundary."""
+    from repro_torch.workflows import logreg_predict
+    margin = X @ w_cpu[:-1] + w_cpu[-1]
+    flipped = logreg_predict(w_cpu, X) != logreg_predict(w_card, X)
+    require(bool(np.all(np.abs(margin[flipped]) < FLIP_MARGIN)),
+            (what, "a prediction flipped away from the boundary"))
+    return int(flipped.sum())
+
+
+def paper_learners(name, dev):
+    """(b): ``name``'s workflow at its default knobs, every node run on the
+    card and again on the CPU. Each deterministic learner runs a second
+    time on the card on the same inputs (bitwise equal); the card's values
+    are held against the CPU's (learners within LEARNER_TOL, int32
+    assignments equal, host nodes bitwise). MNIST's projection is drawn
+    afresh on each run, so its learner is held on the card's features."""
+    from repro_torch import workflows as W
+    wd = W.WORKFLOWS[name]
+    k = wd.knobs0
+    t0 = time.perf_counter()
+    timings = {}
+    card = evaluate_nodes(wd.build(k, device=dev), timings)
+    wall, busy = (sum(t[i] for t in timings.values()) for i in (0, 1))
+    per_node = {n: (round(w, 4), round(d, 4), c)
+                for n, (w, d, c) in timings.items()}
+    print(f"paper {name} cold on the card, profiled: wall {wall:.4f} s, "
+          f"device {busy:.4f} s (busy {busy / wall:.1%}); per node (wall s, "
+          f"device s, launches) {per_node}")
+    require(busy > 0, (name, "no device time on the card"))
+    cpu = evaluate_nodes(wd.build(k, device="cpu")) if name != "mnist" else {}
+    dag = wd.build(k, device="cpu").build()
+    host = [n for n in cpu
+            if not ({n} | dag.ancestors(n)) & set(CARD_NODES[name])]
+    require(all(same_bits(card[n], cpu[n]) for n in host), (name, host))
+    again, errs, flips = {}, {}, 0
+    if name == "census":
+        ex = card["income"]
+        X, y, n = ex["X"], ex["y"], ex["n_train"]
+        again["incPred"] = W.train_logreg(X[:n], y[:n], k.reg,
+                                          iters=k.train_iters, device=dev)
+        errs["incPred"] = learner_err(cpu["incPred"], card["incPred"], name)
+        flips = boundary_flips(X, cpu["incPred"], card["incPred"], name)
+        require(flips > 0 or card["checkResults"] == cpu["checkResults"],
+                (name, card["checkResults"], cpu["checkResults"]))
+    elif name == "genomics":
+        again["word2vec"] = W.train_embeddings(card["articles"], k.vocab,
+                                               k.emb_dim, k.emb_epochs,
+                                               device=dev)
+        again["kmeans"] = W.kmeans(card["geneVectors"], k.n_clusters,
+                                   device=dev)
+        errs["word2vec"] = learner_err(cpu["word2vec"], card["word2vec"], name)
+        errs["kmeans"] = learner_err(cpu["kmeans"][0], card["kmeans"][0], name)
+        require(np.array_equal(cpu["kmeans"][1], card["kmeans"][1]),
+                (name, "assignments differ between the card and the CPU"))
+        jo, to = cpu["clusterReport"], card["clusterReport"]
+        require(to["top_cluster_sizes"] == jo["top_cluster_sizes"]
+                and abs(to["inertia"] - jo["inertia"])
+                <= LEARNER_TOL * abs(jo["inertia"]), (name, jo, to))
+    elif name == "nlp":
+        again["corenlp"] = W.encoder_parse(card["news"], k.vocab, device=dev)
+        X, y = card["candidates"]
+        again["spouseLR"] = W.train_logreg(X, y, k.reg, iters=200,
+                                           device=dev)
+        errs["corenlp"] = learner_err(cpu["corenlp"], card["corenlp"], name)
+        errs["spouseLR"] = learner_err(cpu["spouseLR"], card["spouseLR"], name)
+        flips = boundary_flips(X, cpu["spouseLR"], card["spouseLR"], name)
+        require(flips > 0 or card["scoreF1"] == cpu["scoreF1"],
+                (name, card["scoreF1"], cpu["scoreF1"]))
+    else:
+        Z, y = card["randomFFT"]
+        again["softmax"] = W.train_softmax(Z, y, k.reg, k.epochs, device=dev)
+        errs["softmax"] = learner_err(
+            W.train_softmax(Z, y, k.reg, k.epochs, device="cpu"),
+            card["softmax"], name)
+    twice = {n: same_bits(card[n], v) for n, v in again.items()}
+    print(f"paper {name} learners: twice on the card bitwise {twice}; card vs "
+          f"CPU max |diff| / max(1, max |CPU|) "
+          f"{ {n: f'{e:.3g}' for n, e in errs.items()} }; predictions "
+          f"flipped at the boundary {flips}; host nodes bitwise {len(host)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(all(twice.values()), (name, "a learner is not deterministic", twice))
+
+
+def state_seconds(execution, state) -> float:
+    """The realized C(n) (or l) of the nodes in ``state``, summed."""
+    return round(sum(execution.runtime.get(n, 0.0)
+                     for n, st in execution.states.items() if st is state), 4)
+
+
+def paper_workflows_path(dev):
+    """Phase 8: (a) the paper's runs, (b) correctness that needs the card,
+    (c) the daily retrain, (d) no kernel launched. Returns the counts."""
+    from repro_torch import workflows as W
+    from repro_torch.core import Policy, State
+    from repro_torch.launch import bench_workflows as B
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    _reset(counters)
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="paper-", dir=os.path.join(ROOT, "build"))
+    try:
+        results = {}
+        for name in PAPER_FLOWS:
+            t0 = time.perf_counter()
+            results[name] = B.run_policies(W.WORKFLOWS[name], workdir,
+                                           PAPER_ITERS, device=dev)
+            print(f"paper {name}: NM, AM, OPT x {PAPER_ITERS} iterations in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        cum = B.bench_cumulative_runtime(results, dev)
+        B.bench_storage(results, dev)
+        B.bench_state_fractions(results, dev)
+        for name, runs in results.items():
+            for policy, run in runs.items():
+                ex = [r.execution for r in run.reports]
+                total, speedup = cum[name][policy]
+                outside = [round(t - e.total_seconds, 4)
+                           for t, e in zip(run.times, ex)]
+                print(f"paper {name} {policy.value}: wall s "
+                      f"{[round(t, 4) for t in run.times]}; cumulative "
+                      f"{total:.4f} s, {speedup:.3f}x NM; computed "
+                      f"{[e.n_computed for e in ex]}; loaded "
+                      f"{[e.n_loaded for e in ex]}; pruned "
+                      f"{[e.n_pruned for e in ex]}; store bytes "
+                      f"{[r.store_bytes for r in run.reports]}; compute s "
+                      f"{[state_seconds(e, State.COMPUTE) for e in ex]}; load s "
+                      f"{[state_seconds(e, State.LOAD) for e in ex]}; mat s "
+                      f"{[round(e.mat_seconds, 4) for e in ex]}; outside "
+                      f"execute s {outside}")
+                print(f"paper {name} {policy.value} cold C(n) s: "
+                      f"{ {n: round(c, 4) for n, c in ex[0].runtime.items()} }"
+                      + (f"; OMP kept back: {ex[0].skipped_mat}"
+                         if policy is Policy.OPT else ""))
+            if name == "mnist":
+                require(all(r.execution.states["randomFFT"] is State.COMPUTE
+                            for run in runs.values() for r in run.reports),
+                        "mnist: a random-FFT node was reused")
+            else:
+                for it in range(PAPER_ITERS):
+                    outs = [run.reports[it].outputs for run in runs.values()]
+                    require(outs[0] == outs[1] == outs[2],
+                            (name, it, "outputs differ between policies"))
+        t_paper = time.perf_counter() - t_phase
+        for name in PAPER_FLOWS:
+            paper_learners(name, dev)
+        B.bench_incremental(workdir, device=dev)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    print(f"paper workflows: the runs {t_paper:.1f} s, phase 8 "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {launches}")
+    require(not any(launches.values()), ("a kernel launched", launches))
+    return launches
+
+
 def link_rates(dev, nbytes=1 << 30, n=5):
     """GB/s of a pinned host buffer copied to the card and back (CUDA
     events around ``n`` copies each way, after one warm-up copy): the
@@ -1323,7 +1543,8 @@ def main() -> int:
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
-               "lm-workflow": lm_workflow_path(dev)}
+               "lm-workflow": lm_workflow_path(dev),
+               "paper-workflows": paper_workflows_path(dev)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",

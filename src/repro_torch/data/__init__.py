@@ -1,4 +1,4 @@
-from . import pipeline, synth
+from . import pipeline, synth, tabular
 from .pipeline import TokenBatcher, batch_to
 
-__all__ = ["pipeline", "synth", "TokenBatcher", "batch_to"]
+__all__ = ["pipeline", "synth", "tabular", "TokenBatcher", "batch_to"]

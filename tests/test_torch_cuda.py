@@ -622,3 +622,56 @@ def test_session_without_placement_keeps_loaded_values_on_the_card(cuda,
         value, _ = store.load(sig)
         assert all(t.is_cuda for t in tree_leaves(value)
                    if isinstance(t, torch.Tensor)), sig
+
+
+# The paper workflows' learners (repro_torch.workflows): Helix loads a
+# deterministic node's stored value in place of recomputing it, so each
+# learner must give the same bits on every run on the card; and it must
+# agree with the same call on the CPU as it does with its JAX twin
+# (tests/test_torch_workflows.py: 1e-5 of max(1, max |CPU|), int32
+# assignments equal). Shapes are the workflows' defaults where they are
+# cheap on the CPU, cut where the CPU side would take long.
+LEARNER_TOL = 1e-5
+
+
+def _learner_cases():
+    import numpy as np
+    from repro_torch import workflows as tw
+    from repro_torch.data import synth as tsynth
+    rng = np.random.default_rng(0)
+    X = (rng.random((24_000, 286)) < 0.05).astype(np.float32)
+    y = (X[:, :40].sum(1) + rng.normal(0, 1, 24_000) > 2).astype(np.int32)
+    docs = tsynth.documents(11, 600, 160, 4000)
+    pts = rng.normal(size=(400, 64)).astype(np.float32)
+    imgs, labels = tsynth.images(5, 4000)
+    W = rng.normal(size=(28 * 28, 512)).astype(np.float32)
+    Z = np.cos(imgs.reshape(4000, -1) @ W)
+    return {
+        "train_logreg": lambda dev: tw.train_logreg(X, y, 0.1, device=dev),
+        "train_embeddings": lambda dev: tw.train_embeddings(
+            docs, 4000, 64, 12, device=dev),
+        "kmeans": lambda dev: tw.kmeans(pts, 16, device=dev),
+        "train_softmax": lambda dev: tw.train_softmax(Z, labels, 1e-3, 60,
+                                                      device=dev),
+        "encoder_parse": lambda dev: tw.encoder_parse(docs[:300, :96], 4000,
+                                                      device=dev),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learner", ["train_logreg", "train_embeddings",
+                                     "kmeans", "train_softmax",
+                                     "encoder_parse"])
+def test_workflow_learner_is_deterministic_on_the_card(cuda, learner):
+    import numpy as np
+    fn = _learner_cases()[learner]
+    first, second, cpu = fn(cuda), fn(cuda), fn("cpu")
+    if learner != "kmeans":
+        first, second, cpu = (first,), (second,), (cpu,)
+    for a, b, c in zip(first, second, cpu):
+        assert isinstance(a, np.ndarray) and a.dtype == c.dtype
+        assert a.shape == c.shape and a.tobytes() == b.tobytes()
+        if a.dtype == np.int32:
+            np.testing.assert_array_equal(a, c)
+        else:
+            assert np.abs(a - c).max() <= LEARNER_TOL * max(1.0, np.abs(c).max())

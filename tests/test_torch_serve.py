@@ -145,12 +145,16 @@ TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedules",
                  "repro_torch.launch.bench_tier", "repro_torch.workflows")
 
 
+WORKFLOW_MODULES = ("repro_torch.data.synth", "repro_torch.data.tabular",
+                    "repro_torch.launch.bench_workflows")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
-    cannot slip past; the Helix core's and the training slice's modules
-    are named so that none is missed) and ``chip_smoke`` (without running
-    it), then check that no JAX, ml_dtypes or reference module was
-    loaded."""
+    cannot slip past; the Helix core's, the training slice's and the
+    paper workflows' modules are named so that none is missed) and
+    ``chip_smoke`` (without running it), then check that no JAX,
+    ml_dtypes or reference module was loaded."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -163,6 +167,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(core) <= set(mods), sorted(set(core) - set(mods))\n"
         f"train = {list(TRAIN_MODULES)!r}\n"
         "assert set(train) <= set(mods), sorted(set(train) - set(mods))\n"
+        f"flows = {list(WORKFLOW_MODULES)!r}\n"
+        "assert set(flows) <= set(mods), sorted(set(flows) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
