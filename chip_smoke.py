@@ -69,7 +69,28 @@ Phases (any failure exits non-zero; none is caught and passed over):
      same workflow run on the CPU. Then the daily-retrain census
      (``bench_incremental``: delta == cold, in under half its time). No
      hand-written kernel is on this path: every count must stay 0;
-  9. print one ``{"kernels": [...]}`` line, then the result line
+  9. the serving and fleet layer (``repro_torch.serve``, the sweep and
+     search drivers) on the card: each workflow run alone first (phase 5's
+     serving workflow of internlm2-1.8b at full width for 32 and 48
+     tokens, and a 4-arm census grid at 120,000 rows), the grid again
+     through ``run_sweep``; then one ``SessionServer`` (prefix schedule,
+     2 session slots, the paper's 10 GB budget) on a unix socket, with two
+     socket clients each submitting the serving workflow and a third the
+     census grid, all at once: served tokens bitwise the isolated runs',
+     census outputs equal, no signature blind-computed twice (every node
+     computed twice printed with the planner's reason), flash and RMSNorm
+     launched under the server, the wire summaries carrying the tokens'
+     shape and dtype; each job's queued and running seconds, each serve
+     node's C(n) alone beside in the server, the card's busy share over
+     the run (``torch.profiler``). Then a fleet of two servers behind a
+     hash ``FleetRouter``: the same submissions, then again through a
+     fresh router, where every repeat lands on its home shard and
+     recomputes nothing its shard holds (no kernel launched). Then
+     ``tune`` over the census grid (reuse frontier, successive halving):
+     0 wasted recomputes and 0 B ledger drift. Then
+     ``launch.bench_fleet``'s six benches at ``FLEET_BENCH_SCALE``, their
+     rows after the card's name and power limit;
+  10. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -78,12 +99,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1471,6 +1494,375 @@ def paper_workflows_path(dev):
     return launches
 
 
+# ------------------------------------------------------------------ phase 9
+FLEET_BUDGET = 10 * 1024 ** 3            # the paper's 10 GB storage budget
+FLEET_CENSUS_ROWS = 120_000              # census at the reference's size
+# the 4-arm census grid: a learner knob x a result-analysis knob, in the
+# order ``core.sweep.grid`` enumerates it
+FLEET_AXES = {"reg": [0.03, 0.3], "eval_threshold": [0.5, 0.7]}
+FLEET_GRID = [dict(zip(FLEET_AXES, v))
+              for v in itertools.product(*FLEET_AXES.values())]
+# the search, as the reference's examples/tune_census.py runs it: a
+# budget of 4 arms over 8 candidates on one slot, then successive halving
+# of 4 regs over the SGD steps on two. Halving over all 8 candidates
+# re-estimates 7 of them between the first two submissions, long enough
+# for the first arm to compute cheap shared extractors that OMP does not
+# keep, which the second then recomputes (ROADMAP queue 3, item 3).
+FLEET_SEARCH = [{"reg": r, "eval_threshold": t}
+                for t in (0.5, 0.7) for r in (0.03, 0.3, 0.01, 1.0)]
+FLEET_HALVING_REGS = (0.03, 0.3, 0.01, 1.0)
+FLEET_HALVING = (60, 300)
+# bench_fleet's --scale inside phase 9 (1 = the reference's sizes)
+FLEET_BENCH_SCALE = 1.0
+SERVE_NODES = ("params", "prompts", "prefill", "decode")
+
+
+def fleet_registry(dev):
+    """The server's registry: ``serve`` (phase 5's serving workflow of
+    internlm2-1.8b at full width, flash in prefill) and ``census`` (at
+    120,000 rows, learner on the card). Returns (registry, cfg)."""
+    from repro_torch import configs
+    from repro_torch import workflows as W
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.get(ARCH), attn_impl="flash")
+
+    def init():
+        return registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                             dev)
+
+    def serve(gen_tokens=SESSION_GEN[0]):
+        return serve_workflow(cfg, init, int(gen_tokens), device=dev)
+
+    def census(**params):
+        return W.build_census(dataclasses.replace(
+            W.CensusKnobs(n_rows=FLEET_CENSUS_ROWS), **params), device=dev)
+    return {"serve": serve, "census": census}, cfg
+
+
+def _fleet_server(workdir, registry, **engine):
+    from repro_torch.core import EngineConfig, StoreConfig
+    from repro_torch.serve import SessionServer
+    return SessionServer(
+        workdir, registry=registry,
+        engine=EngineConfig(**{"schedule": "prefix", "n_sessions": 2,
+                               **engine}),
+        storage=StoreConfig(budget_bytes=float(FLEET_BUDGET),
+                            mem_budget_bytes=SESSION_MEM_BUDGET),
+        poll_interval=0.01)
+
+
+def _since(counters, before):
+    """The launches counted since ``before`` (a ``_read``): the phase's
+    counts run on underneath, set to 0 only at the phase's start."""
+    return {k: v - before[k] for k, v in _read(counters).items()}
+
+
+def _no_repr(tree) -> bool:
+    if isinstance(tree, dict):
+        return "__repr__" not in tree and all(_no_repr(v)
+                                              for v in tree.values())
+    if isinstance(tree, list):
+        return all(_no_repr(v) for v in tree)
+    return True
+
+
+def _submit_all(client, submissions, out, errors):
+    """One client thread: submit every (workflow, params), then wait for
+    each with the detailed summary."""
+    try:
+        jobs = [client.submit(w, p) for w, p in submissions]
+        out.extend(client.wait(j, timeout=1200.0, detail=True) for j in jobs)
+    except BaseException as e:  # raised by the caller after the join
+        errors.append(e)
+    finally:
+        client.close()
+
+
+def fleet_server_run(dev, root, registry, cfg, iso):
+    """(a) One server, two model users and a census grid over a unix
+    socket, against the isolated runs ``iso``. Returns (server, socket
+    path, launches in the run)."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.serve import connect_unix
+    from torch.profiler import ProfilerActivity, profile
+    server = _fleet_server(os.path.join(root, "a"), registry)
+    sock = server.serve_unix(os.path.join(root, "a.sock"))
+    users = [[("serve", {"gen_tokens": g})] for g in SESSION_GEN]
+    users.append([("census", p) for p in FLEET_GRID])
+    outs = [[] for _ in users]
+    errors = []
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    before = _read(counters)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=_submit_all, args=(
+            connect_unix(sock), subs, out, errors))
+            for subs, out in zip(users, outs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _since(counters, before)
+    if errors:
+        raise errors[0]
+    times, calls = _kernel_times(prof)
+    busy = sum(times.values()) / 1e6
+    print(f"fleet server: 2 serve users + a 4-arm census grid over a unix "
+          f"socket, n_sessions 2, schedule prefix: wall {wall:.3f} s, device "
+          f"{busy:.3f} s (busy {busy / wall:.1%}), {sum(calls.values())} device "
+          f"launches; dispatch order {server.dispatch_log}; kernel launches "
+          f"{launches}")
+    require(launches["flash_attention"] >= cfg.num_layers
+            and launches["rmsnorm"] > 0, ("kernels under the server", launches))
+
+    summaries = [s for out in outs for s in out]
+    reports = {s["job"]: server._jobs[s["job"]].report for s in summaries}
+    for s in summaries:
+        require(s["status"] == "done", s)
+        require(_no_repr(s["outputs"]), ("a __repr__ stub on the wire", s["job"]))
+        print(f"  job {s['job']} {s['name']}: queued {s['queued_seconds']:.3f} s, "
+              f"running {s['run_seconds']:.3f} s; computed "
+              f"{s['execution']['n_computed']}, loaded {s['execution']['n_loaded']},"
+              f" deduped {s['execution']['n_deduped']}, pruned "
+              f"{s['execution']['n_pruned']}")
+    # serve users: tokens bitwise the isolated sessions'; the wire summary
+    # carries their shape and dtype
+    for gen, s in zip(SESSION_GEN, (outs[0][0], outs[1][0])):
+        rep = reports[s["job"]]
+        tokens = rep.outputs["decode"]["tokens"]
+        wire = s["outputs"]["decode"]["tokens"]
+        require(tokens.device.type == torch.device(dev).type
+                and torch.equal(tokens, iso["serve"][gen][0]),
+                ("served tokens differ from the isolated session", gen))
+        require(wire["shape"] == [BATCH, gen] and wire["dtype"] == "int32",
+                ("wire tokens", wire))
+        alone = iso["serve"][gen][1]
+        print(f"  serve gen_tokens {gen}: tokens bitwise the isolated session's;"
+              f" C(n) s alone / in the server: " + ", ".join(
+                  f"{n} {alone.get(n, 0.0):.4f} / "
+                  + (f"{rep.execution.runtime[n]:.4f}"
+                     if rep.execution.states[n].name == "COMPUTE" else
+                     rep.execution.states[n].name)
+                  for n in SERVE_NODES))
+    for params, s in zip(FLEET_GRID, outs[2]):
+        require(reports[s["job"]].outputs == iso["census"][json.dumps(params)],
+                ("census output differs from its isolated run", params))
+    print(f"  census grid: {len(FLEET_GRID)} outputs == their isolated runs")
+    # no signature blind-computed twice; every node computed twice printed
+    # with the planner's reason
+    computed, blind, names = {}, {}, {}
+    for s in summaries:
+        rep = reports[s["job"]]
+        names.update({sig: n for n, sig in rep.sigs.items()})
+        for sig in s["execution"]["computed_sigs"]:
+            computed.setdefault(sig, []).append(s["job"])
+        for sig in s["execution"]["blind_computed_sigs"]:
+            blind[sig] = blind.get(sig, 0) + 1
+    for sig, jobs in computed.items():
+        if len(jobs) > 1:
+            chose = [j for j in jobs
+                     if names[sig] in reports[j].execution.chose_compute]
+            print(f"  computed twice: {names[sig]} ({sig[:12]}) in {jobs}; the "
+                  f"planner chose to compute it (load dearer) in {chose}")
+    require(all(c == 1 for c in blind.values()),
+            ("a signature blind-computed twice",
+             {names[s]: c for s, c in blind.items() if c > 1}))
+    return server, sock, launches
+
+
+def fleet_router_run(root, registry, server_a, sock_a):
+    """(b) A fleet of two: the same submissions through a hash router,
+    then again through a fresh router: each repeat lands on its home
+    shard and recomputes nothing that a shard holds (no flash or rmsnorm
+    launch, no node computed whose entry was stored)."""
+    from repro_torch.serve import FleetRouter
+    server_b = _fleet_server(os.path.join(root, "b"), registry)
+    shards = {"a": sock_a, "b": server_b}
+    subs = [("serve", {"gen_tokens": g}) for g in SESSION_GEN] + [
+        ("census", p) for p in FLEET_GRID]
+    counters = launch_counters()
+    passes = {}
+    try:
+        for label in ("first", "rerun"):
+            router = FleetRouter(shards, registry=registry, route="hash")
+            held = {sid: set(s.store.entries()) for sid, s in
+                    (("a", server_a), ("b", server_b))}
+            torch.cuda.synchronize()
+            before = _read(counters)
+            t0 = time.perf_counter()
+            jobs = [router.submit(w, p) for w, p in subs]
+            outs = [router.wait(j, timeout=1200.0, detail=True) for j in jobs]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _since(counters, before)
+            router.close()
+            homes = [o["shard"] for o in outs]
+            recomputed = [sig for o in outs
+                          for sig in o["execution"]["blind_computed_sigs"]
+                          if sig in held[o["shard"]]]
+            chosen = sum(len(o["execution"]["computed_sigs"])
+                         - len(o["execution"]["blind_computed_sigs"])
+                         for o in outs)
+            n_comp = [o["execution"]["n_computed"] - o["execution"]["n_deduped"]
+                      for o in outs]
+            print(f"fleet router {label} pass: wall {wall:.3f} s; shards "
+                  f"{homes}; computed a job {n_comp}, {chosen} of them by the "
+                  f"planner's choice; entries a shard held computed blindly "
+                  f"{len(recomputed)}; launches {launches}")
+            require(all(o["status"] == "done" for o in outs), outs)
+            passes[label] = (homes, recomputed, launches, n_comp)
+        homes0, _, _, _ = passes["first"]
+        homes1, recomputed, launches, n_comp = passes["rerun"]
+        require(homes1 == homes0, ("a repeat left its home shard", homes0, homes1))
+        require(not recomputed and launches["flash_attention"] == 0
+                and launches["rmsnorm"] == 0,
+                ("the warm rerun recomputed", recomputed, launches))
+    finally:
+        server_b.shutdown()
+    return server_b
+
+
+def fleet_search(root, registry):
+    """(c) ``tune`` over the census grid, as the reference's
+    ``examples/tune_census.py``: the reuse frontier under a budget of 4
+    arms, then successive halving over the SGD steps; each with 0 wasted
+    recomputes (every node computed twice blindly is printed) and 0 B
+    ledger drift."""
+    from repro_torch.core import (EngineConfig, HalvingConfig, SearchConfig,
+                                  StorageLedger, Store, StoreConfig,
+                                  compute_signatures, tune)
+    runs = {
+        "budget": dict(space=FLEET_SEARCH, slots=1, config=SearchConfig(
+            strategy="grid", max_arms=4, frontier="reuse", max_inflight=2,
+            metric="checkResults.value")),
+        "halving": dict(space=[{"reg": r} for r in FLEET_HALVING_REGS],
+                        slots=2, config=SearchConfig(
+            strategy="grid", frontier="reuse", max_inflight=2,
+            metric="checkResults.value",
+            halving=HalvingConfig(resource="train_iters",
+                                  levels=list(FLEET_HALVING), eta=2.0)))}
+    for label, run in runs.items():
+        workdir = os.path.join(root, f"search-{label}")
+        t0 = time.perf_counter()
+        report = tune(workdir, {"census": registry["census"]}, "census",
+                      space=run["space"], config=run["config"],
+                      engine=EngineConfig(n_sessions=run["slots"]),
+                      storage=StoreConfig(budget_bytes=float(FLEET_BUDGET)))
+        wall = time.perf_counter() - t0
+        store = Store(os.path.join(workdir, "store"))
+        drift = StorageLedger(store.ledger_path).used() - store.total_bytes()
+        names, blind = {}, {}
+        for a in report.arms:
+            names.update({sig: n for n, sig in compute_signatures(
+                registry["census"](**a.params).build()).items()})
+            for sig in (a.summary.get("execution") or {}).get(
+                    "blind_computed_sigs", ()):
+                blind.setdefault(sig, []).append(
+                    f"#{a.order} {a.name} queued "
+                    f"{a.summary.get('queued_seconds', 0):.3f} s, running "
+                    f"{a.summary.get('run_seconds', 0):.3f} s")
+        for sig, arms in blind.items():
+            if len(arms) > 1:
+                print(f"  blind-computed twice: {names.get(sig, sig[:12])} "
+                      f"by {arms}")
+        best = report.best()
+        ran = [a for a in report.arms if a.status != "skipped"]
+        print(f"fleet search {label}: tune over {len(run['space'])} census "
+              f"candidates, {run['slots']} slot(s): {wall:.3f} s; rungs "
+              f"{[(r['n_arms'], r['n_done'], r['n_cancelled'], r['n_skipped']) for r in report.rungs]}; "
+              f"models trained {len({a.params['reg'] for a in ran})} in "
+              f"{len(ran)} arms; best {best.name if best else None} metric "
+              f"{best.metric if best else None}; wasted recomputes "
+              f"{report.wasted_recomputes()}; ledger drift {drift:.0f} B")
+        require(best is not None and report.wasted_recomputes() == 0
+                and drift == 0, (label, report.wasted_recomputes(), drift))
+
+
+def fleet_benches(dev, smi):
+    """(d) ``launch.bench_fleet``'s six benches, checked where a fleet
+    must hold at any size."""
+    from repro_torch.launch import bench_fleet
+    print(f"bench_fleet --scale {FLEET_BENCH_SCALE:g} on {smi}")
+    out = bench_fleet.run(scale=FLEET_BENCH_SCALE, device=dev)
+    for name in ("census", "mnist"):
+        require(out["sweep_reuse"][name]["shared_recomputed"] == 0
+                and out["server_reuse"][name]["shared_recomputed"] == 0
+                and out["eviction"][name]["ledger_drift_b"] == 0,
+                ("bench_fleet", name))
+    require(out["remote_reuse"]["fleet_dup"] == 0
+            and out["remote_reuse"]["evict_leased"] == 0, out["remote_reuse"])
+    require(out["search_reuse"]["search"]["wasted"] == 0
+            and out["search_reuse"]["halving"]["wasted"] == 0
+            and out["search_reuse"]["halving"]["ledger_drift_b"] == 0,
+            out["search_reuse"])
+    require(out["multitenant"]["hash_recomputed"] == 0
+            and out["multitenant"]["ledger_drift_b"] == 0, out["multitenant"])
+    print("bench_fleet seconds: " + json.dumps(
+        {k: round(v["bench_s"], 3) for k, v in out.items()}))
+
+
+def fleet_path(dev, smi):
+    """Phase 9: the serving and fleet layer on the card. Returns the
+    launch counts of the whole phase."""
+    from repro_torch.core import (EngineConfig, IterativeSession, Policy,
+                                  grid, run_sweep)
+    from repro_torch import workflows as W
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    _reset(counters)
+    t_phase = time.perf_counter()
+    registry, cfg = fleet_registry(dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fleet-", dir=os.path.join(ROOT, "build"))
+    servers = []
+    try:
+        # isolated runs: each workflow in its own session, nothing stored
+        never = EngineConfig(policy=Policy.NEVER)
+        iso = {"serve": {}, "census": {}}
+        for gen in SESSION_GEN:
+            rep = IterativeSession(os.path.join(root, f"iso-serve{gen}"),
+                                   engine=never).run(registry["serve"](gen))
+            iso["serve"][gen] = (rep.outputs["decode"]["tokens"],
+                                 dict(rep.execution.runtime))
+            del rep
+        for i, params in enumerate(FLEET_GRID):
+            rep = IterativeSession(os.path.join(root, f"iso-census{i}"),
+                                   engine=never).run(registry["census"](**params))
+            iso["census"][json.dumps(params)] = rep.outputs
+        # the same grid through run_sweep: one in-process server, one store
+        sweep = run_sweep(
+            os.path.join(root, "sweep"),
+            grid(W.CensusKnobs(n_rows=FLEET_CENSUS_ROWS), FLEET_AXES,
+                 lambda k: W.build_census(k, device=dev), name="census"))
+        sweep.raise_errors()
+        print(f"fleet run_sweep: {len(sweep.results)} census arms in "
+              f"{sweep.wall_seconds:.3f} s; computes a signature "
+              f"{sorted(set(sweep.fleet_computes().values()))}; wasted "
+              f"{sweep.wasted_recomputes()}")
+        require([r.outputs for r in sweep.results]
+                == [iso["census"][json.dumps(p)] for p in FLEET_GRID]
+                and sweep.wasted_recomputes() == 0,
+                "run_sweep's outputs or compute-once")
+
+        server_a, sock_a, _ = fleet_server_run(dev, root, registry, cfg, iso)
+        servers.append(server_a)
+        servers.append(fleet_router_run(root, registry, server_a, sock_a))
+        fleet_search(root, registry)
+        fleet_benches(dev, smi)
+    finally:
+        for server in servers:
+            server.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    print(f"fleet: phase 9 {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launches}")
+    return launches
+
+
 def link_rates(dev, nbytes=1 << 30, n=5):
     """GB/s of a pinned host buffer copied to the card and back (CUDA
     events around ``n`` copies each way, after one warm-up copy): the
@@ -1544,7 +1936,8 @@ def main() -> int:
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "lm-workflow": lm_workflow_path(dev),
-               "paper-workflows": paper_workflows_path(dev)}
+               "paper-workflows": paper_workflows_path(dev),
+               "fleet": fleet_path(dev, smi)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",

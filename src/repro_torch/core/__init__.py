@@ -5,8 +5,8 @@
 #
 # Twin of the JAX package's ``core`` module for module, on torch tensors
 # (CPU or CUDA) and numpy arrays; ``tree`` stands in for
-# ``jax.tree_util``. The sweep and search drivers come with the serving
-# layer (ROADMAP queue 1 item 7).
+# ``jax.tree_util``. ``sweep`` and ``search`` are clients of the session
+# server in ``repro_torch.serve``.
 from .config import (EngineConfig, ResilienceConfig, StoreConfig,
                      reset_legacy_warnings)
 from .dag import DAG, Kind, Node, State, validate_states
@@ -24,6 +24,10 @@ from .executor import ExecutionReport, JobCancelled, execute
 from .workflow import Ref, Workflow
 from .session import IterationReport, IterativeSession
 from .pruning import slice_from_outputs, zero_weight_extractors
+from .sweep import (SweepReport, SweepVariant, VariantResult, grid,
+                    random_search, run_sweep)
+from .search import (ArmResult, HalvingConfig, SearchConfig, SearchDriver,
+                     SearchReport, tune)
 
 __all__ = [
     "EngineConfig", "ResilienceConfig", "StoreConfig",
@@ -42,4 +46,8 @@ __all__ = [
     "Ref", "Workflow",
     "slice_from_outputs", "zero_weight_extractors",
     "IterationReport", "IterativeSession",
+    "SweepReport", "SweepVariant", "VariantResult",
+    "grid", "random_search", "run_sweep",
+    "ArmResult", "HalvingConfig", "SearchConfig", "SearchDriver",
+    "SearchReport", "tune",
 ]

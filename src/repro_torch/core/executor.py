@@ -414,12 +414,14 @@ class _Scheduler:
                 return value, secs
             lease = self.store.acquire_compute(sig)
             if lease is not None:
-                if (self.store.remote is not None
-                        and self.store.has_fresh(sig)):
-                    # Another HOST committed the entry between our
-                    # (cached) presence check and the lease acquisition
-                    # — release and loop to the load path; computing
-                    # here would break fleet-wide compute-once.
+                if self.store.has_fresh(sig):
+                    # Another session (on this host or another) computed,
+                    # committed and released the entry between our
+                    # presence check and the lease acquisition — release
+                    # and loop to the load path; computing here would
+                    # break fleet-wide compute-once. (The JAX package
+                    # re-checks only with a remote tier, so a fast node
+                    # can be computed twice on one host under load.)
                     lease.release()
                     continue
                 break
@@ -790,7 +792,7 @@ def execute(dag: DAG,
     protocol for COMPUTE nodes (shared-store concurrent sessions);
     ``share_sigs`` marks signatures known to recur across sibling
     sessions (always persisted on lease-compute). ``worker_pool`` (the
-    serving layer's ``SharedWorkerPool``, not ported yet) makes the
+    serving layer's ``repro_torch.serve.SharedWorkerPool``) makes the
     worker count elastic: extra workers are borrowed from one process-wide pool shared by all
     sessions instead of spawned per call. ``cancel`` (a
     ``threading.Event``) requests cooperative cancellation: workers

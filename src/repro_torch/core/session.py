@@ -139,7 +139,7 @@ class IterativeSession:
         leases regardless.)
 
     Server knobs (one long-running process hosting many sessions — see
-    the serving layer, not ported yet: ROADMAP queue 1 item 7):
+    ``repro_torch.serve``):
 
     ``remote``
         Attach a fleet-shared remote materialization tier (see

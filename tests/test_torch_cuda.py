@@ -675,3 +675,90 @@ def test_workflow_learner_is_deterministic_on_the_card(cuda, learner):
             np.testing.assert_array_equal(a, c)
         else:
             assert np.abs(a - c).max() <= LEARNER_TOL * max(1.0, np.abs(c).max())
+
+
+# The serving layer on the card (repro_torch.serve): a job summary's
+# outputs keep their shape and dtype when they are CUDA tensors, and a
+# model workflow the server hosts keeps its values on the card.
+@pytest.mark.cuda
+def test_jsonable_of_a_cuda_bf16_tensor(cuda):
+    from repro_torch.serve.protocol import jsonable
+    g = torch.Generator(device=cuda).manual_seed(0)
+    small = torch.randn(2, 5, generator=g, device=cuda).bfloat16()
+    small.requires_grad_()
+    big = torch.randn(4, 40, generator=g, device=cuda).bfloat16()
+    got = jsonable({"small": small, "big": big,
+                    "zero_d": small[0, 0].detach()})
+    assert got["small"] == {"__ndarray__": True, "shape": [2, 5],
+                            "dtype": "bfloat16",
+                            "data": small.detach().float().cpu().tolist()}
+    assert got["big"] == {"__ndarray__": True, "shape": [4, 40],
+                          "dtype": "bfloat16", "data": None}
+    assert got["zero_d"]["shape"] == [] and isinstance(
+        got["zero_d"]["data"], float)
+    assert got == jsonable({"small": small.detach().cpu(),
+                            "big": big.cpu(),
+                            "zero_d": small[0, 0].detach().cpu()})
+
+
+@pytest.mark.cuda
+def test_server_hosts_a_model_on_the_card(cuda, tmp_path):
+    """Two jobs of a 2-layer dense serving workflow (flash and RMSNorm
+    kernels in prefill, RMSNorm in decode) run at once in one server on
+    ``cuda``: each job's tokens and last logits are bitwise those of an
+    isolated session, its outputs and every stored entry stay on the
+    card, and the shared prefix (params, prompts, prefill) is computed
+    once."""
+    import dataclasses
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.abspath(os.path.join(
+        os.path.dirname(__file__), os.pardir)))
+    import chip_smoke
+    from repro_torch import configs
+    from repro_torch.core import IterativeSession, Store
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import registry
+    from repro_torch.serve import InProcessClient, SessionServer
+
+    cfg = dataclasses.replace(configs.reduced(configs.get("internlm2-1.8b")),
+                              num_layers=2, attn_impl="flash")
+
+    def serve(gen_tokens=4):
+        return chip_smoke.serve_workflow(
+            cfg, lambda: registry.init(
+                cfg, torch.Generator(device=cuda).manual_seed(0), cuda),
+            int(gen_tokens), device=cuda, batch=2, prompt=16, max_len=24)
+
+    server = SessionServer(str(tmp_path / "srv"), registry={"serve": serve},
+                           n_sessions=2, poll_interval=0.01)
+    before = fa_ops.flash_attention.launches
+    try:
+        client = InProcessClient(server)
+        jobs = {g: client.submit("serve", {"gen_tokens": g}) for g in (4, 6)}
+        summaries = {g: client.wait(j, detail=True) for g, j in jobs.items()}
+        reports = {g: server._jobs[j].report for g, j in jobs.items()}
+        server.store.writer_drain()
+    finally:
+        server.shutdown()
+    assert fa_ops.flash_attention.launches - before == cfg.num_layers
+    blind = [s for g in summaries
+             for s in summaries[g]["execution"]["blind_computed_sigs"]]
+    assert len(blind) == len(set(blind))
+    for g, summary in summaries.items():
+        assert summary["outputs"]["decode"]["tokens"]["shape"] == [2, g]
+        got = reports[g].outputs["decode"]
+        assert got["tokens"].is_cuda and got["last_logits"].is_cuda
+        want = IterativeSession(str(tmp_path / f"iso{g}")).run(
+            serve(g)).outputs["decode"]
+        for key in ("tokens", "last_logits"):
+            assert torch.equal(got[key].view(torch.uint8),
+                               want[key].view(torch.uint8)), (g, key)
+    store = Store(str(tmp_path / "srv" / "store"))
+    assert store.entries()
+    for sig in store.entries():
+        value, _ = store.load(sig)
+        assert all(t.is_cuda for t in tree_leaves(value)
+                   if isinstance(t, torch.Tensor)), sig

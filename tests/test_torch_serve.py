@@ -149,12 +149,20 @@ WORKFLOW_MODULES = ("repro_torch.data.synth", "repro_torch.data.tabular",
                     "repro_torch.launch.bench_workflows")
 
 
+FLEET_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
+    "protocol", "pool", "scheduler", "tenancy", "server", "client",
+    "router")) + ("repro_torch.serve", "repro_torch.core.sweep",
+                  "repro_torch.core.search",
+                  "repro_torch.launch.bench_fleet")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
     cannot slip past; the Helix core's, the training slice's and the
     paper workflows' modules are named so that none is missed) and
     ``chip_smoke`` (without running it), then check that no JAX,
-    ml_dtypes or reference module was loaded."""
+    ml_dtypes or reference module was loaded. The serving and fleet
+    layer, the sweep and search drivers and their bench are named too."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -169,6 +177,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(train) <= set(mods), sorted(set(train) - set(mods))\n"
         f"flows = {list(WORKFLOW_MODULES)!r}\n"
         "assert set(flows) <= set(mods), sorted(set(flows) - set(mods))\n"
+        f"fleet = {list(FLEET_MODULES)!r}\n"
+        "assert set(fleet) <= set(mods), sorted(set(fleet) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
