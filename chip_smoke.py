@@ -6,14 +6,17 @@
 Phases (any failure exits non-zero; none is caught and passed over):
   1. the card's name and power limit, as nvidia-smi reports them;
   2. build every CUDA kernel from the repo's sources (one nvcc per source,
-     all at once) and print the build seconds and ptxas's report;
+     all at once) and print the build seconds and ptxas's report, one line
+     a kernel (registers, spill bytes);
   3. hold each kernel against its plain PyTorch version on the card, at
      the test shapes and at the serving and training paths' shapes (the
      RMSNorm backward at the train shape); time the kernel, the
      plain version and, where one exists, one PyTorch library call
      computing the same function (a yardstick the port never calls), each
      with a cold L2; for flash also print the achieved TFLOP/s, the share
-     of its bound and the ratio to the library's time; for RMSNorm also the
+     of its bound and the ratio to the library's time, at internlm2's
+     prefill shape and at gemma3's local (window 1024) and global prefill
+     shapes (head_dim 256), with the library's backend; for RMSNorm also the
      wrapper's host µs per call beside the library call's; for the RMSNorm
      backward the device kernels a call runs (one), and the library's
      backward timed as a CUDA-graph replay (its device time);
@@ -26,6 +29,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
   4b. the same for mamba2-130m (the ssm family: the SSD chunk kernel in
      prefill, every launch on its bf16 tensor-core kernel, RMSNorm in every
      forward), with its own counts and plain path;
+  4c. the same for gemma3-4b (the windowed family: 34 layers, head_dim
+     256, ring KV caches for the 29 local layers) with a 1536-token
+     prompt, longer than its 1024-key window: flash at head_dim 256 in
+     every layer of prefill, all on the tensor-core kernel; logits held
+     against the plain no-cache forward (the uniform stack with per-layer
+     windows); the ring cache's bytes beside a uniform cache's, and the
+     card's busy share of one profiled prefill and one decode step;
   5. one Helix session on the card (``repro_torch.core``): a workflow
      params → prompts → prefill → decode serving internlm2-1.8b at full
      width and depth, run under ``Policy.ALWAYS`` (cold, a ``gen_tokens``
@@ -102,6 +112,7 @@ import dataclasses
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -123,6 +134,17 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100": (3.35e12, 989e12, 67e12)}          # SXM (80GB HBM3)
 ARCH, BATCH, PROMPT, GEN, SEED = "internlm2-1.8b", 4, 512, 32, 0
 SSM_ARCH = "mamba2-130m"
+# phase 4c: gemma3-4b's prompt is longer than its 1024-key window, so the
+# prefill's ring write gathers (S > W), decode wraps the ring and flash
+# masks by the window; the other phases keep PROMPT
+WINDOWED_ARCH, WINDOWED_PROMPT = "gemma3-4b", 1536
+# its flash calls in prefill, (B, Sq, Sk, H, KV, D, causal, window, qoff):
+# a local layer attends within the prompt under the window, a global one
+# over its full-length cache of prompt + generated tokens
+WINDOWED_LOCAL = (BATCH, WINDOWED_PROMPT, WINDOWED_PROMPT, 8, 4, 256, True,
+                  1024, 0)
+WINDOWED_GLOBAL = (BATCH, WINDOWED_PROMPT, WINDOWED_PROMPT + GEN, 8, 4, 256,
+                   True, 0, 0)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 2e-2
 # The SSD kernels compute in fp32 (the bf16 tensor-core kernel through
@@ -190,6 +212,31 @@ class ColdTimer:
         return sum(s.elapsed_time(e) for s, e in pairs[warmup:]) / n
 
 
+def ptxas_report(log: str) -> list[str]:
+    """One line a kernel from ``nvcc -Xptxas -v``'s output: its name
+    (demangled by ``c++filt`` where the machine has it, argument list
+    dropped), registers and spill bytes."""
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"spill {m.group(1)} B stored / {m.group(2)} B loaded"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            rows.append((name, f"{m.group(1)} registers, {spill}"))
+            name, spill = None, ""
+    names = [n for n, _ in rows]
+    if names and shutil.which("c++filt"):
+        out = subprocess.run(["c++filt"], input="\n".join(names), check=True,
+                             capture_output=True, text=True).stdout
+        names = [re.sub(r"\(anonymous namespace\)::", "", n).split("(")[0]
+                 for n in out.splitlines()]
+    return [f"{n}: {r}" for n, (_, r) in zip(names, rows)]
+
+
 def require(ok: bool, what) -> None:
     """A check that ``python -O`` keeps: fail the run with ``what``."""
     if not ok:
@@ -211,11 +258,13 @@ def check_rmsnorm(dev, timer, peaks):
     g = torch.Generator(device=dev).manual_seed(1)
     rows = {}
     # test shapes, then what each serving path gives the kernel: internlm2
-    # (D 2048), mamba2's ln1/final norm (D 768) and its gated norm (D 1536)
+    # (D 2048), mamba2's ln1/final norm (D 768) and its gated norm (D 1536),
+    # gemma3 (D 2560 over its longer prompt: blocks of 160 and 320 threads)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8),
               (BATCH * PROMPT, 2048), (BATCH, 1, 2048),
               (BATCH * PROMPT, 768), (BATCH, 1, 768),
-              (BATCH * PROMPT, 1536), (BATCH, 1, 1536)]
+              (BATCH * PROMPT, 1536), (BATCH, 1, 1536),
+              (BATCH * WINDOWED_PROMPT, 2560), (BATCH, 1, 2560)]
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -224,7 +273,7 @@ def check_rmsnorm(dev, timer, peaks):
             torch.cuda.synchronize()
             print(f"rmsnorm {shape} {dtype}: max_abs_err {err:.3g}")
             require(err <= RMSNORM_TOL, (shape, dtype, err))
-            if dtype == torch.bfloat16 and shape[-1] == 2048:
+            if dtype == torch.bfloat16 and shape[-1] in (2048, 2560):
                 rows[shape] = (x, w, err)
     out = None
     for shape, (x, w, err) in rows.items():
@@ -391,6 +440,13 @@ def check_flash(dev, timer, peaks):
         (2, 65, 129, 8, 1, 128, True, 0, 64),
         (1, 127, 127, 4, 1, 32, True, 40, 0),
         (2, 200, 260, 4, 2, 128, True, 100, 30),
+        # head_dim 256 (gemma3's GQA 2): ragged past one and two tiles with
+        # an offset, a window across two kv tiles; gemma3's local and
+        # global prefill shapes
+        (2, 65, 129, 8, 4, 256, True, 0, 64),
+        (2, 200, 260, 4, 2, 256, True, 100, 30),
+        WINDOWED_LOCAL,
+        WINDOWED_GLOBAL,
         (BATCH, PROMPT, PROMPT + GEN, 16, 8, 128, True, 0, 0),  # prefill
     ]
     for i, (b, sq, sk, h, kvh, d, causal, window, qoff) in enumerate(cases):
@@ -399,7 +455,7 @@ def check_flash(dev, timer, peaks):
             k = torch.randn(b, sk, kvh, d, generator=g, device=dev).to(dtype)
             v = torch.randn(b, sk, kvh, d, generator=g, device=dev).to(dtype)
             off = qoff + torch.arange(b, dtype=torch.int32, device=dev) * (
-                50 if i == 7 else 0)
+                50 if i in (7, 11, 12) else 0)
             kw = dict(causal=causal, window=window)
             err = max_err(ops.flash_attention(q, k, v, off, **kw),
                           ref.attention_ref(q, k, v, off, **kw))
@@ -407,21 +463,47 @@ def check_flash(dev, timer, peaks):
             print(f"flash {(b, sq, sk, h, kvh, d, causal, window, qoff)} "
                   f"{dtype}: max_abs_err {err:.3g}")
             require(err <= FLASH_TOL[dtype], (i, dtype, err))
-    # the prefill shape, bf16, timed
-    b, sq, sk, h, kvh, d = cases[-1][:6]
+    # the prefill shapes, bf16, timed: internlm2's (the row's own keys),
+    # then gemma3's local and global layers
+    out = time_flash(dev, timer, peaks, g, cases[-1], "internlm2 prefill")
+    out["gemma3_local"] = time_flash(dev, timer, peaks, g, WINDOWED_LOCAL,
+                                     "gemma3 local prefill")
+    out["gemma3_global"] = time_flash(dev, timer, peaks, g, WINDOWED_GLOBAL,
+                                      "gemma3 global prefill")
+    return out
+
+
+def time_flash(dev, timer, peaks, g, case, label):
+    """One prefill shape in bf16: the kernel's, the plain version's and the
+    library's cold-L2 ms beside the bound. The library call is
+    ``F.scaled_dot_product_attention``: ``is_causal`` for a global layer
+    (its causal mask is aligned top-left, as q_offset 0 is), an explicit
+    boolean mask for a windowed one; the backend it picks is printed from
+    its kernels' names."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    b, sq, sk, h, kvh, d, causal, window, qoff = case
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(torch.bfloat16)
     k, v = (torch.randn(b, sk, kvh, d, generator=g, device=dev).to(torch.bfloat16)
             for _ in range(2))
-    off = torch.zeros(b, dtype=torch.int32, device=dev)
-    kw = dict(causal=True, window=0)
+    off = torch.full((b,), qoff, dtype=torch.int32, device=dev)
+    kw = dict(causal=causal, window=window)
     err = max_err(ops.flash_attention(q, k, v, off, **kw),
                   ref.attention_ref(q, k, v, off, **kw))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, is_causal=True, enable_gqa=True)
+    require(causal and qoff == 0, ("the library call assumes", case))
+    if window:
+        i = torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(sk, device=dev)[None, :]
+        mask = (j <= i) & (i - j < window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    else:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
     lib_err = max_err(lib().transpose(1, 2), ref.attention_ref(q, k, v, off, **kw))
+    lib_kernels = device_kernels(lib)[0]
     # the work this data needs: each query row against its unmasked keys
-    pairs = b * h * sum(min(i + 1, sk) for i in range(sq))
+    pairs = b * h * sum(min(i + 1, sk, window or sk) for i in range(sq))
     flops = 4 * d * pairs                   # q·k and p·v, 2 flops per MAC
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + off.numel() * 4
     t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
@@ -434,9 +516,11 @@ def check_flash(dev, timer, peaks):
            "max_abs_err": err}
     require(ops.flash_attention.launches_tc > before_tc,
             "the bf16 flash call did not run the tensor-core kernel")
-    print(f"flash {tuple(q.shape)} x {tuple(k.shape)} bf16 causal: "
-          + json.dumps(out) + f" (library vs plain max_abs_err {lib_err:.3g})")
-    print(f"flash bf16 at the prefill shape: {flops / out['ms'] / 1e9:.1f} "
+    print(f"flash {label} {tuple(q.shape)} x {tuple(k.shape)} bf16 causal, "
+          f"window {window}: " + json.dumps(out)
+          + f" (library vs plain max_abs_err {lib_err:.3g}; the library's "
+          f"kernels: {[n[:80] for n, _ in lib_kernels.most_common(3)]})")
+    print(f"flash bf16 at the {label} shape: {flops / out['ms'] / 1e9:.1f} "
           f"TFLOP/s achieved, {out['bound_ms'] / out['ms']:.1%} of its bound, "
           f"{out['ms'] / out['library_ms']:.2f}x the library's time "
           f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
@@ -541,7 +625,9 @@ def check_ssd(dev, timer, peaks):
 def plain_last_logits(cfg, params, tokens, attn_impl="chunked"):
     """The dense forward with every kernel replaced by plain torch:
     ``rmsnorm_ref``, and the ``chunked`` attention (fp32 online softmax, as
-    the kernel computes it) or the ``reference`` one; last-position logits."""
+    the kernel computes it) or the ``reference`` one; last-position logits.
+    No cache: every layer attends over the tokens under its own window
+    (a windowed config's local layers), as the uniform stack does."""
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.models import layers, lm
     from repro_torch.models.params import tree_map
@@ -552,11 +638,12 @@ def plain_last_logits(cfg, params, tokens, attn_impl="chunked"):
     for i in range(cfg.num_layers):
         p = tree_map(lambda t: t[i], params["blocks"])
         x = rmsnorm_ref(h, p["ln1"], cfg.norm_eps)
-        h = h + layers.attn_block(cfg, p["attn"], x, pos, window=None)[0]
+        h = h + layers.attn_block(cfg, p["attn"], x, pos,
+                                  window=cfg.layer_window(i))[0]
         x = rmsnorm_ref(h, p["ln2"], cfg.norm_eps)
         h = h + layers.mlp_block(p["mlp"], x)
     h = rmsnorm_ref(h[:, -1], params["final_norm"], cfg.norm_eps)
-    return h @ params["lm_head"]
+    return h @ (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
 
 
 def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
@@ -611,13 +698,15 @@ def launch_counters():
             "ssd_tc": (ssd_ops.ssd, "launches_tc")}
 
 
-def serve_path(dev, cfg, plain, alt, expect):
-    """Serve ``cfg`` at full width through ``serve.run``: a warm-up, then
+def serve_path(dev, cfg, plain, alt, expect, prompt=PROMPT):
+    """Serve ``cfg`` at full width through ``serve.run`` (BATCH prompts of
+    ``prompt`` tokens, GEN generated): a warm-up, then
     the main path with every launch count set to 0 just before it and read
     just after. Requires the counts ``expect``; holds the prefill and last
     decode logits against ``plain(cfg, params, tokens)`` and prints beside
     them the noise floor to ``plain(cfg, params, tokens, alt)``, a plain
-    path that differs only in rounding."""
+    path that differs only in rounding. Returns the launch counts, the
+    parameters and the prompts."""
     from repro_torch.data import synth
     from repro_torch.launch import serve
     from repro_torch.models import registry
@@ -625,8 +714,8 @@ def serve_path(dev, cfg, plain, alt, expect):
     t0 = time.perf_counter()
     params = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
     n_params = sum(t.numel() for t in _leaves(params))
-    prompts = synth.lm_tokens(SEED, BATCH * PROMPT + 1, cfg.vocab_size)[
-        :BATCH * PROMPT].reshape(BATCH, PROMPT)
+    prompts = synth.lm_tokens(SEED, BATCH * prompt + 1, cfg.vocab_size)[
+        :BATCH * prompt].reshape(BATCH, prompt)
     torch.cuda.synchronize()
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
@@ -666,7 +755,7 @@ def serve_path(dev, cfg, plain, alt, expect):
           f"noise floor between two plain paths: {floor}; "
           f"first sequence {res.tokens[0][:16].tolist()}")
     require(all(e < LOGITS_REL_TOL for e in errs.values()), errs)
-    return launches
+    return launches, params, prompts
 
 
 def serve_full(dev):
@@ -678,7 +767,7 @@ def serve_full(dev):
     return serve_path(dev, cfg, plain_last_logits, "reference", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": cfg.num_layers,
-        "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0})
+        "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0})[0]
 
 
 def serve_ssm(dev):
@@ -692,7 +781,82 @@ def serve_ssm(dev):
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers,
-        "ssd_tc": cfg.num_layers})
+        "ssd_tc": cfg.num_layers})[0]
+
+
+def serve_windowed(dev):
+    """gemma3-4b at full width and depth (34 layers: 5 groups of 5 local
+    ring layers and a global one, then 4 local tail layers), prompt
+    WINDOWED_PROMPT: flash in each layer of prefill (29 local within the
+    prompt under the window, 5 global over the full cache), every one on
+    the bf16 tensor-core kernel at head_dim 256; 2 norms a layer and the
+    final norm in every forward. Decode attends over the ring slots in
+    plain torch (no kernel there, as in the reference). Then the ring
+    cache's bytes beside a uniform cache's, and one profiled prefill and
+    decode step."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(WINDOWED_ARCH), attn_impl="flash")
+    n = cfg.num_layers
+    launches, params, prompts = serve_path(
+        dev, cfg, plain_last_logits, "reference", {
+            "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
+            "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
+            "ssd_tc": 0}, prompt=WINDOWED_PROMPT)
+    windowed_profile(dev, cfg, params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name}: phase 4c {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def windowed_profile(dev, cfg, params, prompts):
+    """The ring cache's bytes beside a uniform cache's at the serving
+    max_len, then the card's busy share (device time over wall) of one
+    profiled prefill and one decode step, with their top kernels."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+    from torch.profiler import ProfilerActivity, profile
+    max_len = WINDOWED_PROMPT + GEN
+
+    def nbytes(c):
+        return sum(t.numel() * t.element_size() for t in c.values()
+                   if isinstance(t, torch.Tensor))
+    ring = nbytes(lm.init_cache(cfg, BATCH, max_len, "meta"))
+    uniform = nbytes(lm.init_cache(dataclasses.replace(
+        cfg, window_cache=False), BATCH, max_len, "meta"))
+    print(f"serve {cfg.name}: ring cache {ring / 1e6:.1f} MB, a uniform "
+          f"cache {uniform / 1e6:.1f} MB at max_len {max_len} "
+          f"({ring / uniform:.3f}x)")
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        logits, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+                                           max_len=max_len)
+        token = logits.argmax(-1).to(torch.int32)[:, None]
+        logits, cache = steps.decode_step(cfg, params, token, cache)  # warm
+        token = logits.argmax(-1).to(torch.int32)[:, None]
+        for label, fn in (
+                ("prefill", lambda: steps.prefill_step(
+                    cfg, params, {"tokens": tokens}, max_len=max_len)),
+                ("decode step", lambda: steps.decode_step(
+                    cfg, params, token, cache))):
+            torch.cuda.synchronize()
+            with profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            times, calls = _kernel_times(prof)
+            require(bool(times), "torch.profiler recorded no device time")
+            dev_ms = sum(times.values()) / 1e3
+            print(f"serve {cfg.name} {label} profiled: wall {wall_ms:.3f} ms, "
+                  f"device {dev_ms:.3f} ms (busy {dev_ms / wall_ms:.1%}), "
+                  f"{sum(calls.values())} launches; top kernels:")
+            for name, us in times.most_common(6):
+                print(f"  {us / 1e3:9.3f} ms {us / 1e3 / dev_ms:6.1%} "
+                      f"{calls[name]:6d}x  {name[:100]}")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1918,13 +2082,13 @@ def main() -> int:
           f"peaks {peaks[0] / 1e12:.2f} TB/s, {peaks[1] / 1e12:.0f} TFLOP/s bf16, "
           f"{peaks[2] / 1e12:.0f} TFLOP/s fp32")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build_all()
     print(f"built {len(logs)} of {len(_build.sources())} kernel libraries in "
           f"{time.perf_counter() - t0:.2f} s")
     for src, log in logs.items():
-        report = [ln for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"{os.path.relpath(src, ROOT)}:\n  " + "\n  ".join(report))
+        print(f"{os.path.relpath(src, ROOT)}:\n  " + "\n  ".join(
+            ptxas_report(log)))
 
     timer = ColdTimer(dev)
     rows = {"rmsnorm": check_rmsnorm(dev, timer, peaks),
@@ -1933,6 +2097,7 @@ def main() -> int:
             "ssd": check_ssd(dev, timer, peaks)}
     del timer
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
+               WINDOWED_ARCH: serve_windowed(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "lm-workflow": lm_workflow_path(dev),
@@ -1966,6 +2131,8 @@ def main() -> int:
             row["note"] = ("the reference differentiates "
                            "src/repro/models/layers.py:27 by autodiff")
         kernels.append({**row, **rows[k]})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -44,12 +44,27 @@
 //    are never loaded (the loop bounds); the per-element mask runs only on
 //    tiles that cross a mask edge.
 //
+// head_dim 256 (gemma3-4b), bf16: the same kernel, one consumer warpgroup
+// of 64 query rows and the producer warp. What changes:
+//  * shared memory: Q 32 KB + 2 stages x (K + V) of 32 KB + 1 KB of
+//    alignment, ~165 KB: one block an SM, so the instantiation is bounded
+//    __launch_bounds__(160, 1) (D <= 128 keep (160, 2)), which lets a
+//    thread hold up to 255 registers;
+//  * registers: the fp32 O accumulator is 64 x 256 / 128 = 128 registers a
+//    thread, beside S (32) and P (16) — under the 255 cap, so O stays in
+//    one warpgroup's registers, and the split of O over two consumer
+//    warpgroups of 128 dims each is not needed: ptxas for sm_90a reports
+//    202 registers and no spill (chip_smoke.py phase 2 prints it);
+//  * O += P V is one wgmma m64n256k16 a k16 step (hopper::wgmma_rs_n256),
+//    V's four column blocks of 64 dims one leading byte offset apart;
+//  * a 256-dim row of Q, K or V is four 64-dim boxes of 128-byte swizzle.
+//
 // fp32: the CUDA-core kernel (flash_fwd_fp32). The tensor cores cannot hold
 // the fp32 tolerance (2e-5), so fp32 inputs keep plain fp32 FMAs: one block
 // per (q tile of 32 rows, q head, batch row), 4 warps of 8 query rows, K/V
 // tiles of 32 keys in shared memory (K rows padded to D + 1 floats against
-// bank conflicts), warp-shuffle softmax, P·V broadcast by shuffle. No
-// serving path runs it: the models serve in bf16.
+// bank conflicts; 98,432 bytes at D = 256), warp-shuffle softmax, P·V
+// broadcast by shuffle. No serving path runs it: the models serve in bf16.
 //
 // Masked-but-existing keys get the score -1e30 in both kernels, exactly as
 // in the TPU kernel, so a row matches the oracle whenever it has one
@@ -274,12 +289,16 @@ struct Geom {
   static constexpr int kBarBytes = 8 * (1 + 2 * kStages);
   // + 1 KB to align the base to the 1024-byte swizzle period
   static constexpr int kSmem = 1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
-  static_assert(D % 16 == 0 && D % kCB == 0, "head_dim");
+  // blocks an SM the launch bounds ask for: two up to D = 128; at D = 256
+  // the shared memory allows one, and O needs 128 registers a thread
+  static constexpr int kMinBlocks = D <= 128 ? 2 : 1;
+  static_assert(D % 16 == 0 && D % kCB == 0 && D <= 256, "head_dim");
+  static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
 // (wgmma's fragment layout: include/hopper.cuh)
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Geom<D>::kMinBlocks)
 flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
              const __grid_constant__ CUtensorMap tm_k,
              const __grid_constant__ CUtensorMap tm_v,
@@ -442,7 +461,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
         pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
     // O += P V: V is MN-major; a k16 step is 16 key rows, the next column
-    // block of kCB dims lies kBK rows on (the leading byte offset)
+    // block of kCB dims lies kBK rows on (the leading byte offset); one
+    // wgmma of N = D a step (n256 at D = 256)
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
@@ -525,7 +545,8 @@ extern "C" {
 
 // q, out: (B, Sq, H, D); k, v: (B, Sk, KV, D), all contiguous, 16-byte
 // aligned; q_offset: (B,) int32 on the device. window <= 0 means global.
-// D in {32, 64, 128}. Each returns the launch's cudaError_t (0 = launched).
+// D in {32, 64, 128, 256}. Each returns the launch's cudaError_t (0 =
+// launched).
 
 // bf16: the tensor-core kernel
 int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
@@ -537,6 +558,7 @@ int flash_attention_fwd_bf16(const void* q, const void* k, const void* v,
     case 32: return tc::launch<32>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     case 64: return tc::launch<64>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     case 128: return tc::launch<128>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 256: return tc::launch<256>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -551,6 +573,7 @@ int flash_attention_fwd_fp32(const void* q, const void* k, const void* v,
     case 32: return simt::launch<32>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     case 64: return simt::launch<64>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     case 128: return simt::launch<128>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
+    case 256: return simt::launch<256>(q, k, v, q_offset, out, B, Sq, Sk, H, KV, causal, window, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

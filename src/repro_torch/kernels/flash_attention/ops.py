@@ -26,7 +26,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 # A "very large" window meaning global attention (the JAX package's
 # ``models.layers.GLOBAL_WINDOW``); ``models.layers`` takes it from here.
 GLOBAL_WINDOW = 1 << 30
-HEAD_DIMS = (32, 64, 128)     # instantiated in the kernel
+HEAD_DIMS = (32, 64, 128, 256)  # instantiated in the kernel
 # input type -> the library's launch function for it
 _ENTRY = {torch.bfloat16: "flash_attention_fwd_bf16",
           torch.float32: "flash_attention_fwd_fp32"}

@@ -5,11 +5,14 @@ Twin of the JAX package's ``launch/serve.py``, with two more flags:
 ``--attn-impl`` (default ``flash``, so prefill goes through the
 FlashAttention kernel; the ssm family has no attention and ignores it).
 ``run`` is the library entry point; ``main`` and ``chip_smoke.py`` both
-call it. It serves the dense family and the ssm family (mamba2-130m, whose
-prefill goes through the SSD chunk kernel).
+call it. It serves the dense family, its windowed configs among them
+(gemma3-4b: ring KV caches for the local layers, flash at head_dim 256 in
+prefill), and the ssm family (mamba2-130m, whose prefill goes through the
+SSD chunk kernel).
 
     python -m repro_torch.launch.serve --full          # on the card
     python -m repro_torch.launch.serve --arch mamba2-130m --full
+    python -m repro_torch.launch.serve --arch gemma3-4b --full --prompt-len 1536
     python -m repro_torch.launch.serve --device cpu    # reduced, on the CPU
 """
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention with a KV
-cache, gated MLP (twin of the JAX package's ``models/layers.py``).
+cache or a ring KV cache, gated MLP (twin of the JAX package's
+``models/layers.py``).
 
 Plain functions on tensors over the reference's dict parameter tree.
 ``rmsnorm`` always goes through the RMSNorm kernel's wrapper, which is
@@ -9,8 +10,9 @@ is on and an input requires grad, and a direct launch otherwise;
 ``gqa_attention`` with ``impl="flash"`` and ``S_q > 1`` goes through the
 FlashAttention wrapper, which is forward only: training runs the plain
 ``"chunked"`` attention, as the reference does. On CPU tensors both
-wrappers take their plain versions. ``ring_update``, ``attn_block_ring`` and ``cross_attn_block`` come
-with the windowed and audio families (ROADMAP queue 1 item 8).
+wrappers take their plain versions. ``ring_update`` and
+``attn_block_ring`` serve the windowed family's local layers (gemma3);
+``cross_attn_block`` comes with the audio family (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .params import P
 
 __all__ = ["GLOBAL_WINDOW", "rmsnorm_defs", "rmsnorm", "rope_freqs",
            "apply_rope", "attention_defs", "gqa_attention", "attn_block",
-           "mlp_defs", "mlp_block"]
+           "ring_update", "attn_block_ring", "mlp_defs", "mlp_block"]
 
 
 # --------------------------------------------------------------------------- norm
@@ -227,6 +229,79 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                         causal=causal, window=window, valid_len=valid,
                         impl=cfg.attn_impl)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+
+
+def ring_update(kc: torch.Tensor, vc: torch.Tensor, kpc: torch.Tensor,
+                k: torch.Tensor, v: torch.Tensor, cache_pos: int
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ring-buffer cache write with absolute-position tracking.
+
+    kc/vc: (B, W, KV, hd); kpc: (B, W) int32 absolute positions (−big when
+    empty); k/v: (B, S, KV, hd) new entries for positions
+    [cache_pos, cache_pos+S). Slot = pos % W; for S > W only the last W
+    survive. Written in place into ``kc``, ``vc`` and ``kpc``, which are
+    returned (the reference returns updated copies).
+
+    The slot's newest position takes the remainder with the dividend's
+    sign (``torch.fmod``, as the reference's ``lax.rem``): when S < W, the
+    slots past the last position get a position after it and the K/V of
+    the last one. Causality hides them until decode overwrites them; a
+    floored remainder would leave them empty, and the cache would differ
+    from the reference's.
+    """
+    w = kpc.shape[1]
+    s = k.shape[1]
+    if s == 1:
+        slot = cache_pos % w          # cache_pos >= 0: the same as rem
+        kc[:, slot:slot + 1] = k.to(kc.dtype)
+        vc[:, slot:slot + 1] = v.to(vc.dtype)
+        kpc[:, slot] = cache_pos
+        return kc, vc, kpc
+    last = cache_pos + s - 1
+    j = torch.arange(w, dtype=torch.int32, device=kpc.device)
+    p = last - torch.fmod(last - j, w)        # newest pos <= last in slot j
+    take = p >= cache_pos                     # slot overwritten by this call
+    rel = torch.clamp(p - cache_pos, 0, s - 1).long()
+    sel = take[None, :, None, None]
+    kc.copy_(torch.where(sel, k.index_select(1, rel).to(kc.dtype), kc))
+    vc.copy_(torch.where(sel, v.index_select(1, rel).to(vc.dtype), vc))
+    kpc.copy_(torch.where(take[None, :], p[None, :], kpc))
+    return kc, vc, kpc
+
+
+def attn_block_ring(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                    ring: tuple, cache_pos: int, window: int
+                    ) -> tuple[torch.Tensor, tuple]:
+    """Sliding-window attention against a ring cache (window_cache mode).
+
+    Decode (S == 1): write-then-attend over the W ring slots, masking by
+    the *stored absolute positions* (ring order is irrelevant to a position
+    mask). Prefill (S > 1, cache_pos == 0, as in the reference): attend
+    within the sequence through ``cfg.attn_impl``, then ring-write the
+    tail. The ring is written in place and returned.
+    """
+    s = x.shape[1]
+    kc, vc, kpc = ring
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.use_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if s == 1:
+        ring_update(kc, vc, kpc, k, v, cache_pos)
+        out = gqa_attention(q, kc, vc, positions, kpc, causal=True,
+                            window=window, impl="reference")
+    else:
+        if cache_pos != 0:
+            # attending within the sequence would miss the ring's older keys
+            raise ValueError(f"attn_block_ring: a prefill (S = {s}) must "
+                             f"start at position 0, not {cache_pos}")
+        out = gqa_attention(q, k, v, positions, positions, causal=True,
+                            window=window, impl=cfg.attn_impl)
+        ring_update(kc, vc, kpc, k, v, cache_pos)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (kc, vc, kpc)
 
 
 # --------------------------------------------------------------------------- mlp

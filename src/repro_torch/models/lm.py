@@ -1,14 +1,20 @@
 """Decoder-only LM, dense and ssm families (twin of the JAX package's
-``models/lm.py``).
+``models/lm.py``), the dense family's windowed configs (gemma3) included.
 
 The reference scans stacked ``blocks`` with ``jax.lax.scan``; here a Python
 loop walks the layer index over the same stacked tensors. The caches are
 stacked tensors written in place layer by layer (the reference's serve loop
 donates its cache instead): for the dense family one (layers, B, S_max, KV,
 D) tensor per K and V, for the ssm family the conv state (layers, B, K-1,
-C) and the SSM state (layers, B, H, P, N). The ssm stack runs its blocks
-with ``use_kernel=True``, so prefill goes through the SSD chunk kernel
-(the reference's stack leaves it off).
+C) and the SSM state (layers, B, H, P, N). A windowed config with
+``window_cache`` keeps the reference's ring caches instead: groups of
+``global_every - 1`` local layers with ``min(window, max_len)`` ring slots
+and their absolute positions, one global layer with a full-length cache,
+and a tail of ``num_layers % global_every`` local layers
+(``_windowed_stack``; without a cache such a config runs the uniform
+stack with per-layer windows, as the reference does). The ssm stack runs
+its blocks with ``use_kernel=True``, so prefill goes through the SSD chunk
+kernel (the reference's stack leaves it off).
 
 For training, each layer of the dense stack runs under
 ``torch.utils.checkpoint`` where the reference wraps its scan body in
@@ -92,10 +98,26 @@ def init(cfg: ArchConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 # caches
 # ---------------------------------------------------------------------------
+def _windowed(cfg: ArchConfig) -> bool:
+    """Whether ``cfg`` keeps ring caches for its local layers."""
+    return bool(cfg.window_cache and cfg.window is not None
+                and cfg.global_every)
+
+
+def _window_groups(cfg: ArchConfig) -> tuple[int, int, int]:
+    """(n_full_groups, group_size, n_tail_local) for window_cache mode."""
+    g = cfg.global_every
+    n_groups = cfg.num_layers // g
+    tail = cfg.num_layers - n_groups * g
+    return n_groups, g, tail
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str) -> dict:
-    """Dense KV cache, or the ssm family's conv and SSM states; ``pos``
-    (the next write offset) is a host int."""
+    """Dense KV cache, the ring caches of a windowed config with
+    ``window_cache``, or the ssm family's conv and SSM states: the
+    reference's leaves, shapes, dtypes and fill values. ``pos`` (the next
+    write offset) is a host int."""
     _require_ported(cfg)
     if cfg.family == "ssm":
         conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
@@ -104,12 +126,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             "h": h.new_zeros((cfg.num_layers,) + h.shape),
             "pos": 0,
         }
-    if cfg.window_cache and cfg.window is not None and cfg.global_every:
-        raise NotImplementedError(
-            f"{cfg.name}: ring KV caches come with the windowed family "
-            "(ROADMAP queue 1 item 8)")
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if _windowed(cfg):
+        ng, g, tail = _window_groups(cfg)
+        w = min(cfg.window, max_len)
+        neg = -(1 << 30)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+
+        def empty_positions(*shape):
+            return torch.full(shape, neg, dtype=torch.int32, device=device)
+
+        return {
+            # local layers: ring buffers of `w` slots + absolute positions
+            "kl": zeros(ng, g - 1, batch, w, kvh, hd),
+            "vl": zeros(ng, g - 1, batch, w, kvh, hd),
+            "kpl": empty_positions(ng, g - 1, batch, w),
+            # global layers: full-length caches
+            "kg": zeros(ng, 1, batch, max_len, kvh, hd),
+            "vg": zeros(ng, 1, batch, max_len, kvh, hd),
+            # tail local layers (num_layers % global_every)
+            "kt": zeros(tail, batch, w, kvh, hd),
+            "vt": zeros(tail, batch, w, kvh, hd),
+            "kpt": empty_positions(tail, batch, w),
+            "pos": 0,
+        }
+    shape = (cfg.num_layers, batch, max_len, kvh, hd)
     return {
         "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
         "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
@@ -166,7 +209,12 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         positions = torch.arange(base, base + s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
 
-    stack = _ssm_stack if cfg.family == "ssm" else _attn_stack
+    if cfg.family == "ssm":
+        stack = _ssm_stack
+    elif cache is not None and _windowed(cfg):
+        stack = _windowed_stack
+    else:
+        stack = _attn_stack
     h, new_cache = stack(cfg, params, h, positions, cache)
 
     h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -216,6 +264,48 @@ def _attn_stack(cfg, params, h, positions, cache):
     if has_cache:
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
     return h, new_cache
+
+
+# --- windowed group stack (gemma3 window_cache mode) ---------------------------
+def _windowed_stack(cfg, params, h, positions, cache):
+    """Groups of [(global_every − 1) × local-ring, 1 × global] layers, plus
+    a tail of local layers: ring caches for locals, a full cache for
+    globals, each written in place. Serving only: the cache is always
+    there, so nothing is checkpointed."""
+    ng, g, tail = _window_groups(cfg)
+    base = cache["pos"]
+    w = cfg.window
+
+    def ffn(p, h):
+        if cfg.moe is not None and cfg.moe.every_k_layers == 1:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers come with the MoE family "
+                "(ROADMAP queue 1 item 8)")
+        x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+        return h + layers.mlp_block(p["mlp"], x)
+
+    def local(p, h, ring):
+        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        out, _ = layers.attn_block_ring(cfg, p["attn"], x, positions, ring,
+                                        base, w)
+        return ffn(p, h + out)
+
+    blocks = _unstack(params["blocks"], cfg.num_layers)
+    for gi in range(ng):
+        for i in range(g - 1):
+            h = local(blocks[gi * g + i], h, (cache["kl"][gi, i],
+                                              cache["vl"][gi, i],
+                                              cache["kpl"][gi, i]))
+        p = blocks[gi * g + g - 1]
+        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        out, _ = layers.attn_block(
+            cfg, p["attn"], x, positions, window=None,
+            kv_cache=(cache["kg"][gi, 0], cache["vg"][gi, 0]), cache_pos=base)
+        h = ffn(p, h + out)
+    for i in range(tail):
+        h = local(blocks[ng * g + i], h,
+                  (cache["kt"][i], cache["vt"][i], cache["kpt"][i]))
+    return h, dict(cache)
 
 
 # --- ssm stack (mamba2) ---------------------------------------------------------

@@ -1,8 +1,8 @@
 """Family dispatch (twin of the JAX package's ``models/registry.py``).
 
-Only ``lm.py`` is ported, for the dense and ssm families; it raises for
-the others, and the enc-dec (audio) family comes with them (ROADMAP
-queue 1 item 8).
+Only ``lm.py`` is ported, for the dense family (the windowed configs'
+ring caches included) and the ssm family; it raises for the others, and
+the enc-dec (audio) family comes with them (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 

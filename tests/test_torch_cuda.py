@@ -45,7 +45,13 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", RMSNORM_SHAPES + [(2048, 2048), (4, 1, 2048)])
+# gemma3-4b's decode rows (4, 1, 2560) here; its prefill rows (6144, 2560)
+# in RMSNORM_LAYOUT_CASES, held at half a bf16 ulp of the fp32 result: over
+# 15.7 M outputs some reach |y| >= 4, where one bf16 ulp (0.03125) exceeds
+# the absolute RMSNORM_TOL, and the kernel's fp32 sum, taken in another
+# order than the plain version's, rounds a few of them the other way
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES + [
+    (2048, 2048), (4, 1, 2048), (4, 1, 2560)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -60,12 +66,14 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 
 
 # (rows, D): each serving D at decode (4 rows: a thread per 16-byte
-# vector) and prefill (2,048 rows: a thread per two vectors); then shapes
-# that leave each branch ragged: a part-filled last warp, a part-filled
-# second vector, several vectors a thread, and rows wider than the 16
-# vectors a thread keeps in registers (the re-read tail)
+# vector) and prefill (2,048 rows, 6,144 for gemma3's D 2560: a thread per
+# two vectors); then shapes that leave each branch ragged: a part-filled
+# last warp, a part-filled second vector, several vectors a thread, and
+# rows wider than the 16 vectors a thread keeps in registers (the re-read
+# tail)
 RMSNORM_LAYOUT_CASES = [
-    (4, 768), (4, 1536), (4, 2048), (2048, 768), (2048, 1536), (2048, 2048),
+    (4, 768), (4, 1536), (4, 2048), (4, 2560),
+    (2048, 768), (2048, 1536), (2048, 2048), (6144, 2560),
     (3, 776), (2049, 776), (600, 12288), (300, 12296), (5, 40000), (4, 72),
 ]
 
@@ -278,6 +286,18 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     # a window narrower than one kv tile, and one spanning two
     (2, 200, 200, 4, 2, 64, True, 40, 0),
     (2, 200, 260, 4, 2, 128, True, 100, 30),
+    # head_dim 256 (gemma3: GQA 2): Sq and Sk on either side of one and two
+    # tiles, a q_offset, non-causal, a window narrower than one kv tile and
+    # one spanning several, then gemma3-4b's local and global prefill
+    (2, 63, 65, 8, 4, 256, True, 0, 0),
+    (1, 127, 129, 4, 2, 256, True, 0, 2),
+    (2, 129, 128, 2, 1, 256, True, 0, 0),
+    (1, 65, 129, 8, 4, 256, True, 0, 64),
+    (1, 128, 127, 4, 2, 256, False, 0, 0),
+    (2, 200, 200, 4, 2, 256, True, 40, 0),
+    (2, 300, 330, 8, 4, 256, True, 150, 30),
+    (4, 1536, 1536, 8, 4, 256, True, 1024, 0),
+    (4, 1536, 1568, 8, 4, 256, True, 0, 0),
 ]
 
 
@@ -321,16 +341,18 @@ def test_flash_kernel_per_row_offsets_in_different_tiles(cuda, dtype):
 
 @pytest.mark.cuda
 def test_flash_bf16_runs_on_the_tensor_core_kernel_and_fp32_does_not(cuda):
-    q = torch.randn(1, 64, 2, 64, device=cuda)
-    before, before_tc = (tfa_ops.flash_attention.launches,
-                         tfa_ops.flash_attention.launches_tc)
-    tfa_ops.flash_attention(q, q, q)
-    assert (tfa_ops.flash_attention.launches,
-            tfa_ops.flash_attention.launches_tc) == (before + 1, before_tc)
-    tfa_ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
-    torch.cuda.synchronize()
-    assert (tfa_ops.flash_attention.launches,
-            tfa_ops.flash_attention.launches_tc) == (before + 2, before_tc + 1)
+    for d in (64, 256):
+        q = torch.randn(1, 64, 2, d, device=cuda)
+        before, before_tc = (tfa_ops.flash_attention.launches,
+                             tfa_ops.flash_attention.launches_tc)
+        tfa_ops.flash_attention(q, q, q)
+        assert (tfa_ops.flash_attention.launches,
+                tfa_ops.flash_attention.launches_tc) == (before + 1, before_tc)
+        tfa_ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+        torch.cuda.synchronize()
+        assert (tfa_ops.flash_attention.launches,
+                tfa_ops.flash_attention.launches_tc) == (before + 2,
+                                                         before_tc + 1)
 
 
 @pytest.mark.cuda
@@ -343,6 +365,70 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         tfa_ops.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
     with pytest.raises(ValueError, match="dtypes"):
         tfa_ops.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s, pos", [(1, 13), (6, 0), (8, 0), (20, 0), (3, 5)])
+def test_ring_update_on_the_card_is_bitwise_the_cpu(cuda, s, pos):
+    """The ring write (a wrapping decode slot, S < W with its phantom
+    slots, S == W, S > W, a write at an offset) gives the same bits on
+    ``cuda`` as on the CPU, in place on either."""
+    from repro_torch.models import layers
+    g = torch.Generator().manual_seed(s)
+    kc, vc = (torch.randn(2, 8, 2, 256, generator=g).bfloat16()
+              for _ in range(2))
+    kp = torch.randint(-5, 3, (2, 8), generator=g, dtype=torch.int32)
+    kp[:, ::3] = -(1 << 30)
+    k, v = (torch.randn(2, s, 2, 256, generator=g).bfloat16() for _ in range(2))
+    cpu = layers.ring_update(kc.clone(), vc.clone(), kp.clone(), k, v, pos)
+    ring = tuple(t.to(cuda) for t in (kc, vc, kp))
+    card = layers.ring_update(*ring, k.to(cuda), v.to(cuda), pos)
+    torch.cuda.synchronize()
+    for a, b, r in zip(cpu, card, ring):
+        assert b is r and torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", [32, 256])
+def test_windowed_forward_on_the_card_matches_the_cpu(cuda, head_dim):
+    """A reduced gemma3 (ring caches, window 8) served on the card, prefill
+    through the flash kernel, against the same weights and tokens on the
+    CPU (the plain versions): prefill of 20 tokens and 8 teacher-forced
+    decode steps (the ring wraps), each step's logits within 3e-2 of the
+    CPU's max |logit|, the ring's positions equal."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get("gemma3-4b")), attn_impl="flash",
+        **({} if head_dim == 32 else
+           {"num_heads": 2, "num_kv_heads": 1, "head_dim": 256}))
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 28),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = tfa_ops.flash_attention.launches_tc
+        with torch.inference_mode():
+            logits, cache = steps.prefill_step(
+                cfg, p, {"tokens": toks[:, :20].to(dev)}, max_len=28)
+            got = [logits.float().cpu()]
+            for i in range(20, 28):
+                logits, cache = steps.decode_step(
+                    cfg, p, toks[:, i:i + 1].to(dev), cache)
+                got.append(logits.float().cpu())
+        launched = tfa_ops.flash_attention.launches_tc - before
+        assert launched == (cfg.num_layers if dev == "cuda" else 0)
+        out[dev] = (got, cache["kpl"].cpu())
+    (cpu, kp_cpu), (card, kp_card) = out["cpu"], out["cuda"]
+    assert torch.equal(kp_cpu, kp_card)
+    for step, (a, b) in enumerate(zip(cpu, card)):
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err < 3e-2, (step, err)
 
 
 SSD_CUDA_CASES = [
