@@ -15,8 +15,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      computing the same function (a yardstick the port never calls), each
      with a cold L2; for flash also print the achieved TFLOP/s, the share
      of its bound and the ratio to the library's time, at internlm2's
-     prefill shape and at gemma3's local (window 1024) and global prefill
-     shapes (head_dim 256), with the library's backend; for RMSNorm also the
+     prefill shape, at gemma3's local (window 1024) and global prefill
+     shapes (head_dim 256) and at granite-moe's (head_dim 64) and
+     qwen2-moe's (head_dim 128, one query head a KV head) prefill shapes,
+     with the library's backend; RMSNorm also timed at width 1024
+     (granite-moe's prefill and decode rows); for RMSNorm also the
      wrapper's host µs per call beside the library call's; for the RMSNorm
      backward the device kernels a call runs (one), and the library's
      backward timed as a CUDA-graph replay (its device time);
@@ -36,6 +39,20 @@ Phases (any failure exits non-zero; none is caught and passed over):
      against the plain no-cache forward (the uniform stack with per-layer
      windows); the ring cache's bytes beside a uniform cache's, and the
      card's busy share of one profiled prefill and one decode step;
+  4d. the MoE family at full width and depth: granite-moe-1b-a400m and
+     qwen2-moe-a2.7b, as phase 4 serves internlm2 (flash in every layer of
+     prefill, RMSNorm in every forward, exact counts). The capacity per
+     expert follows the tokens of each call (1 in a decode step of batch
+     4), so decode drops assignments and is not the no-cache forward of
+     its tokens: the logits are held against a plain cached path (the
+     same prefill and teacher-forced decode calls, every kernel replaced
+     by its plain version), with the noise floor between two such paths
+     and the share of top-k picks and kept slots on which the served and
+     plain routings disagree; then a drop-free run (capacity factor = the
+     expert count) against the plain no-cache forward; two served runs
+     bitwise equal; the dropped share of assignments in prefill and
+     decode, the KV cache's bytes, and one profiled prefill and decode
+     step;
   5. one Helix session on the card (``repro_torch.core``): a workflow
      params → prompts → prefill → decode serving internlm2-1.8b at full
      width and depth, run under ``Policy.ALWAYS`` (cold, a ``gen_tokens``
@@ -119,6 +136,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -145,6 +163,11 @@ WINDOWED_LOCAL = (BATCH, WINDOWED_PROMPT, WINDOWED_PROMPT, 8, 4, 256, True,
                   1024, 0)
 WINDOWED_GLOBAL = (BATCH, WINDOWED_PROMPT, WINDOWED_PROMPT + GEN, 8, 4, 256,
                    True, 0, 0)
+# phase 4d: the MoE family, served as phase 4 serves ARCH; their flash
+# calls in prefill (B, Sq, Sk, H, KV, D, causal, window, qoff)
+MOE_ARCHS = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b")
+GRANITE_PREFILL = (BATCH, PROMPT, PROMPT + GEN, 16, 8, 64, True, 0, 0)
+QWEN2_MOE_PREFILL = (BATCH, PROMPT, PROMPT + GEN, 16, 16, 128, True, 0, 0)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 2e-2
 # The SSD kernels compute in fp32 (the bf16 tensor-core kernel through
@@ -165,6 +188,18 @@ SESSION_MEM_BUDGET = 8e9
 # rounding (chunked vs reference attention) are printed as that noise
 # floor. A wiring, masking or offset fault moves the logits by far more.
 LOGITS_REL_TOL = 6e-2
+# phase 4d: routing is discrete. Where two experts nearly tie, a one-ulp
+# difference in the bf16 hidden state picks the other and moves that
+# token's logits by percents, and the change spreads to later layers and,
+# through the capacity, to the other tokens of its expert. Two plain
+# paths that differ only in rounding then differ by more than
+# LOGITS_REL_TOL at qwen2-moe's 24 layers (PERF.md, section 6). So that bound
+# holds the plain path run on the served path's top-k picks, which keeps
+# every other step (gates, capacity, dispatch, experts, combine, caches);
+# the routing is held by the share of (token, layer) rows on which the
+# two paths, each on its own, pick alike: a wiring fault (a wrong router,
+# softmax axis or top-k order) disagrees on nearly all of them.
+ROUTING_DISAGREE_MAX = 0.5
 # phase 6: the train path vs its plain path, per step and for the first
 # step's norm-weight gradients (each leaf relative to its max |g|). Both
 # run the same bf16 model; they differ only where the kernels round
@@ -259,9 +294,11 @@ def check_rmsnorm(dev, timer, peaks):
     rows = {}
     # test shapes, then what each serving path gives the kernel: internlm2
     # (D 2048), mamba2's ln1/final norm (D 768) and its gated norm (D 1536),
-    # gemma3 (D 2560 over its longer prompt: blocks of 160 and 320 threads)
+    # gemma3 (D 2560 over its longer prompt: blocks of 160 and 320 threads),
+    # granite-moe (D 1024; qwen2-moe's D 2048 is internlm2's)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8),
               (BATCH * PROMPT, 2048), (BATCH, 1, 2048),
+              (BATCH * PROMPT, 1024), (BATCH, 1, 1024),
               (BATCH * PROMPT, 768), (BATCH, 1, 768),
               (BATCH * PROMPT, 1536), (BATCH, 1, 1536),
               (BATCH * WINDOWED_PROMPT, 2560), (BATCH, 1, 2560)]
@@ -273,10 +310,11 @@ def check_rmsnorm(dev, timer, peaks):
             torch.cuda.synchronize()
             print(f"rmsnorm {shape} {dtype}: max_abs_err {err:.3g}")
             require(err <= RMSNORM_TOL, (shape, dtype, err))
-            if dtype == torch.bfloat16 and shape[-1] in (2048, 2560):
-                rows[shape] = (x, w, err)
+            if dtype == torch.bfloat16 and shape[-1] in (1024, 2048, 2560):
+                rows[shape] = [x, w, err, None]
     out = None
-    for shape, (x, w, err) in rows.items():
+    for shape, row in rows.items():
+        x, w, err, _ = row
         d = x.shape[-1]
         w_lib = w.to(x.dtype)
         nbytes = 2 * x.numel() * x.element_size() + d * 4
@@ -291,11 +329,14 @@ def check_rmsnorm(dev, timer, peaks):
              "max_abs_err": err}
         print(f"rmsnorm {shape} bf16: " + json.dumps(r)
               + f" ({r['ms'] / r['library_ms']:.2f}x the library's time)")
+        row[3] = r
         if shape == (BATCH * PROMPT, 2048):
             out = r
+    out["d1024_prefill"] = rows[(BATCH * PROMPT, 1024)][3]
+    out["d1024_decode"] = rows[(BATCH, 1, 1024)][3]
     # the wrapper's own host cost at the decode shape, beside the library's
     from repro_torch.launch.rmsnorm_layouts import host_us
-    x, w, _ = rows[(BATCH, 1, 2048)]
+    x, w, _, _ = rows[(BATCH, 1, 2048)]
     w_lib = w.to(x.dtype)
     host = {"rmsnorm_us": host_us(lambda: ops.rmsnorm(x, w)),
             "library_us": host_us(lambda: F.rms_norm(x, (2048,), w_lib, 1e-5))}
@@ -447,6 +488,8 @@ def check_flash(dev, timer, peaks):
         (2, 200, 260, 4, 2, 256, True, 100, 30),
         WINDOWED_LOCAL,
         WINDOWED_GLOBAL,
+        GRANITE_PREFILL,
+        QWEN2_MOE_PREFILL,
         (BATCH, PROMPT, PROMPT + GEN, 16, 8, 128, True, 0, 0),  # prefill
     ]
     for i, (b, sq, sk, h, kvh, d, causal, window, qoff) in enumerate(cases):
@@ -464,12 +507,18 @@ def check_flash(dev, timer, peaks):
                   f"{dtype}: max_abs_err {err:.3g}")
             require(err <= FLASH_TOL[dtype], (i, dtype, err))
     # the prefill shapes, bf16, timed: internlm2's (the row's own keys),
-    # then gemma3's local and global layers
+    # then gemma3's local and global layers, granite-moe's and qwen2-moe's
     out = time_flash(dev, timer, peaks, g, cases[-1], "internlm2 prefill")
     out["gemma3_local"] = time_flash(dev, timer, peaks, g, WINDOWED_LOCAL,
                                      "gemma3 local prefill")
     out["gemma3_global"] = time_flash(dev, timer, peaks, g, WINDOWED_GLOBAL,
                                       "gemma3 global prefill")
+    out["granite_moe_prefill"] = time_flash(dev, timer, peaks, g,
+                                            GRANITE_PREFILL,
+                                            "granite-moe prefill")
+    out["qwen2_moe_prefill"] = time_flash(dev, timer, peaks, g,
+                                          QWEN2_MOE_PREFILL,
+                                          "qwen2-moe prefill")
     return out
 
 
@@ -698,41 +747,41 @@ def launch_counters():
             "ssd_tc": (ssd_ops.ssd, "launches_tc")}
 
 
-def serve_path(dev, cfg, plain, alt, expect, prompt=PROMPT):
+def serve_main(dev, cfg, expect, prompt=PROMPT):
     """Serve ``cfg`` at full width through ``serve.run`` (BATCH prompts of
-    ``prompt`` tokens, GEN generated): a warm-up, then
-    the main path with every launch count set to 0 just before it and read
-    just after. Requires the counts ``expect``; holds the prefill and last
-    decode logits against ``plain(cfg, params, tokens)`` and prints beside
-    them the noise floor to ``plain(cfg, params, tokens, alt)``, a plain
-    path that differs only in rounding. Returns the launch counts, the
-    parameters and the prompts."""
-    from repro_torch.data import synth
+    ``prompt`` tokens, GEN generated): a warm-up, then the main path with
+    every launch count set to 0 just before it and read just after.
+    Requires the counts ``expect``, tokens in the vocabulary and finite
+    logits. Returns the result, the launch counts, the parameters and the
+    prompts."""
     from repro_torch.launch import serve
     from repro_torch.models import registry
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
     params = registry.init(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-    n_params = sum(t.numel() for t in _leaves(params))
-    prompts = synth.lm_tokens(SEED, BATCH * prompt + 1, cfg.vocab_size)[
-        :BATCH * prompt].reshape(BATCH, prompt)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in _leaves(params))
+    prompts = synth_prompts(cfg, prompt=prompt)
     print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B params, init {time.perf_counter() - t0:.1f} s")
+          f"{n_params / 1e9:.3f} B params, init {init_s:.1f} s (peak "
+          f"{init_gb:.2f} GB)")
 
     serve.run(cfg, params, prompts, 2)            # warm-up: cuBLAS, libraries
     torch.cuda.reset_peak_memory_stats(dev)
     counters = launch_counters()
-    for wrapper, attr in counters.values():
-        setattr(wrapper, attr, 0)
+    _reset(counters)
     res = serve.run(cfg, params, prompts, GEN)    # the main path
-    launches = {name: getattr(wrapper, attr)
-                for name, (wrapper, attr) in counters.items()}
+    launches = _read(counters)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tok_s = BATCH * (GEN - 1) / res.decode_s
     print(f"serve {cfg.name}: prefill {res.prefill_s * 1e3:.2f} ms; decode "
-          f"{res.decode_s * 1e3:.2f} ms for {GEN - 1} steps ({tok_s:.1f} tok/s); "
-          f"peak memory {peak_gb:.2f} GB; launches {launches}")
+          f"{res.decode_s * 1e3:.2f} ms for {GEN - 1} steps "
+          f"({res.decode_s / (GEN - 1) * 1e3:.2f} ms a step, {tok_s:.1f} "
+          f"tok/s); peak memory {peak_gb:.2f} GB; launches {launches}")
 
     require(launches == expect, (cfg.name, launches, expect))
     require(tuple(res.tokens.shape) == (BATCH, GEN), res.tokens.shape)
@@ -741,7 +790,16 @@ def serve_path(dev, cfg, plain, alt, expect, prompt=PROMPT):
     for t in (res.prefill_logits, res.last_logits):
         require(t.shape == (BATCH, cfg.vocab_size) and bool(torch.isfinite(t).all()),
                 "logits of the wrong shape or not finite")
+    return res, launches, params, prompts
 
+
+def serve_path(dev, cfg, plain, alt, expect, prompt=PROMPT):
+    """``serve_main``, then the prefill and last decode logits held against
+    ``plain(cfg, params, tokens)``, with the noise floor to ``plain(cfg,
+    params, tokens, alt)``, a plain path that differs only in rounding,
+    printed beside them. Returns the launch counts, the parameters and the
+    prompts."""
+    res, launches, params, prompts = serve_main(dev, cfg, expect, prompt)
     with torch.inference_mode():
         tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
         plain_prefill = plain(cfg, params, tokens)
@@ -812,23 +870,32 @@ def serve_windowed(dev):
 
 def windowed_profile(dev, cfg, params, prompts):
     """The ring cache's bytes beside a uniform cache's at the serving
-    max_len, then the card's busy share (device time over wall) of one
-    profiled prefill and one decode step, with their top kernels."""
-    from repro_torch.launch.profile_serve import _kernel_times
-    from repro_torch.models import lm
-    from repro_torch.train import steps
-    from torch.profiler import ProfilerActivity, profile
+    max_len, then the card's busy share of one profiled prefill and one
+    decode step (``profile_serving``)."""
     max_len = WINDOWED_PROMPT + GEN
-
-    def nbytes(c):
-        return sum(t.numel() * t.element_size() for t in c.values()
-                   if isinstance(t, torch.Tensor))
-    ring = nbytes(lm.init_cache(cfg, BATCH, max_len, "meta"))
-    uniform = nbytes(lm.init_cache(dataclasses.replace(
-        cfg, window_cache=False), BATCH, max_len, "meta"))
+    ring = cache_bytes(cfg, max_len)
+    uniform = cache_bytes(dataclasses.replace(cfg, window_cache=False),
+                          max_len)
     print(f"serve {cfg.name}: ring cache {ring / 1e6:.1f} MB, a uniform "
           f"cache {uniform / 1e6:.1f} MB at max_len {max_len} "
           f"({ring / uniform:.3f}x)")
+    profile_serving(dev, cfg, params, prompts, max_len)
+
+
+def cache_bytes(cfg, max_len) -> int:
+    """Bytes of ``cfg``'s serving cache for BATCH rows of ``max_len``."""
+    from repro_torch.models import lm
+    return sum(t.numel() * t.element_size()
+               for t in lm.init_cache(cfg, BATCH, max_len, "meta").values()
+               if isinstance(t, torch.Tensor))
+
+
+def profile_serving(dev, cfg, params, prompts, max_len):
+    """The card's busy share (device time over wall) of one profiled
+    prefill and one decode step, with their launches and top kernels."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.train import steps
+    from torch.profiler import ProfilerActivity, profile
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
@@ -857,6 +924,219 @@ def windowed_profile(dev, cfg, params, prompts):
             for name, us in times.most_common(6):
                 print(f"  {us / 1e3:9.3f} ms {us / 1e3 / dev_ms:6.1%} "
                       f"{calls[name]:6d}x  {name[:100]}")
+
+
+# ------------------------------------------------------------------ phase 4d
+@contextlib.contextmanager
+def moe_routes(picks=None):
+    """Every MoE call's ``Routing`` (experts, keep, slot tables), in call
+    order: ``moe_block`` calls ``route``, and ``route`` calls ``top_k``,
+    through their module. With ``picks`` (another run's routings, in call
+    order) each call takes that run's top-k experts instead of its own,
+    gated by its own probabilities."""
+    from repro_torch.models import moe
+    seen, real_route, real_top_k = [], moe.route, moe.top_k
+
+    def top_k(probs, k):
+        idx = picks[len(seen)].expert_idx
+        return probs.gather(1, idx), idx
+
+    moe.route = lambda *a: seen.append(real_route(*a)) or seen[-1]
+    if picks is not None:
+        moe.top_k = top_k
+    try:
+        yield seen
+    finally:
+        moe.route, moe.top_k = real_route, real_top_k
+
+
+def cached_path(dev, cfg, params, prompts, served, picks=None):
+    """The serving calls fed the served tokens: prefill of ``prompts``,
+    then GEN - 1 decode steps of ``served``'s tokens, routing on their own
+    or on ``picks`` (``moe_routes``). Returns the prefill and last logits
+    and every MoE call's routing."""
+    from repro_torch.train import steps
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    served = served.to(dev)
+    with torch.inference_mode(), moe_routes(picks) as routes:
+        first, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+                                          max_len=PROMPT + GEN)
+        logits = first
+        for i in range(GEN - 1):
+            logits, cache = steps.decode_step(cfg, params, served[:, i:i + 1],
+                                              cache)
+    return first, logits, routes
+
+
+def plain_cached_path(dev, cfg, params, prompts, served, attn_impl,
+                      picks=None):
+    """``cached_path`` with every kernel replaced by its plain version:
+    ``rmsnorm_ref`` for every norm and the ``chunked`` (or ``reference``)
+    attention; the port's ``moe_block`` as it is (it has no kernel). No
+    kernel may launch."""
+    counters = launch_counters()
+    _reset(counters)
+    with plain_kernels():
+        out = cached_path(dev, dataclasses.replace(cfg, attn_impl=attn_impl),
+                          params, prompts, served, picks)
+    require(not any(_read(counters).values()),
+            ("the plain path launched a kernel", _read(counters)))
+    return out
+
+
+def plain_moe_logits(cfg, params, tokens, attn_impl, picks=None):
+    """The no-cache forward on the plain path (``rmsnorm_ref``, plain
+    attention), routing on its own or on ``picks`` (``moe_routes``): the
+    last position's logits."""
+    from repro_torch.models import lm
+    with torch.inference_mode(), plain_kernels(), moe_routes(picks):
+        return lm.forward(dataclasses.replace(cfg, attn_impl=attn_impl),
+                          params, tokens).logits[:, -1]
+
+
+def no_cache_picks(routes, n_layers, length):
+    """A cached run's top-k picks (its prefill's calls, then a decode
+    step's, layer by layer) as the no-cache forward over its first
+    ``length`` positions meets them: one call a layer over every (row,
+    position)."""
+    b = BATCH
+    out = []
+    for layer in range(n_layers):
+        calls = routes[layer::n_layers]
+        idx = torch.cat([r.expert_idx.reshape(b, -1, r.expert_idx.shape[1])
+                         for r in calls], 1)[:, :length]
+        out.append(types.SimpleNamespace(expert_idx=idx.reshape(
+            -1, idx.shape[-1])))
+    return out
+
+
+def routing_disagreement(a, b) -> dict:
+    """Over two runs' MoE calls, in order: the share of (token, layer)
+    rows whose top-k picks differ, and of (expert, slot) entries whose
+    kept token differs (filled on one side only, or another token)."""
+    require(len(a) == len(b), (len(a), len(b)))
+    rows = picks = slots = kept = 0
+    for x, y in zip(a, b):
+        require(x.cap == y.cap, (x.cap, y.cap))
+        rows += x.expert_idx.shape[0]
+        picks += int((x.expert_idx != y.expert_idx).any(1).sum())
+        slots += x.filled.numel()
+        kept += int(((x.filled != y.filled) | (x.filled & (
+            x.token_for_slot != y.token_for_slot))).sum())
+    return {"picks": picks / rows, "kept_slots": kept / slots}
+
+
+def dropped_share(routes) -> float:
+    return (sum(int((~r.keep).sum()) for r in routes)
+            / sum(r.keep.numel() for r in routes))
+
+
+def serve_moe(dev):
+    """Phase 4d: each MoE config at full width and depth (``moe_path``).
+    Returns {arch: launch counts of its main path}."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    out = {}
+    for name in MOE_ARCHS:
+        out[name] = moe_path(dev, dataclasses.replace(configs.get(name),
+                                                      attn_impl="flash"))
+        torch.cuda.empty_cache()
+    print(f"serve moe: phase 4d {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def moe_path(dev, cfg):
+    """One MoE config: the main path through ``serve.run`` with exact
+    counts (flash in each layer of prefill, all on the tensor-core kernel;
+    2 norms a layer and the final norm in every forward), a second run
+    bitwise equal, the plain cached path and its noise floor, the routing
+    disagreement and dropped shares, the drop-free run against the plain
+    no-cache forward, the cache's bytes and a profiled prefill and decode
+    step."""
+    from repro_torch.launch import serve
+    n, e = cfg.num_layers, cfg.moe.num_experts
+    res, launches, params, prompts = serve_main(dev, cfg, {
+        "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
+        "flash_attention": n, "flash_attention_tc": n, "ssd": 0, "ssd_tc": 0})
+    print(f"{cfg.name}: {e} experts top {cfg.moe.top_k} (shared "
+          f"{cfg.moe.num_shared}), capacity factor "
+          f"{cfg.moe.capacity_factor}; KV cache "
+          f"{cache_bytes(cfg, PROMPT + GEN) / 1e6:.1f} MB")
+
+    again = serve.run(cfg, params, prompts, GEN)
+    require(torch.equal(again.tokens, res.tokens)
+            and same_bits(again.prefill_logits, res.prefill_logits)
+            and same_bits(again.last_logits, res.last_logits),
+            f"{cfg.name}: two served runs differ")
+
+    # the served calls again, teacher-forced, to read their routing; then
+    # the plain cached path on the same calls, and its noise floor: each
+    # path routing on its own hidden state, and the plain paths on the
+    # served path's top-k picks, which takes out the routing flips that a
+    # near-tie and a one-ulp difference make
+    first, last, served = cached_path(dev, cfg, params, prompts, res.tokens)
+    require(same_bits(first, res.prefill_logits)
+            and same_bits(last, res.last_logits),
+            f"{cfg.name}: the teacher-forced replay is not the served run")
+    require(len(served) == n * GEN, len(served))
+    plain = {}
+    for picks in (None, served):
+        for attn_impl in ("chunked", "reference"):
+            plain[picks is None, attn_impl] = plain_cached_path(
+                dev, cfg, params, prompts, res.tokens, attn_impl, picks)
+    errs = {}
+    for own in (True, False):
+        (p_first, p_last, routes), (f_first, f_last, f_routes) = (
+            plain[own, "chunked"], plain[own, "reference"])
+        errs[own] = {"prefill": rel_err(p_first, res.prefill_logits),
+                     "last_decode": rel_err(p_last, res.last_logits)}
+        floor = {"prefill": rel_err(p_first, f_first),
+                 "last_decode": rel_err(p_last, f_last)}
+        label = "its own routing" if own else "the served picks"
+        print(f"serve {cfg.name} vs the plain cached path on {label} "
+              f"(max |diff| / max |logit|): {errs[own]}; noise floor between "
+              f"two plain paths: {floor}; routing disagreement served vs "
+              f"plain: {routing_disagreement(served, routes)}, between the "
+              f"two plain paths: {routing_disagreement(routes, f_routes)}")
+    caps = (served[0].cap, served[n].cap)
+    print(f"serve {cfg.name}: capacity prefill {caps[0]}, decode {caps[1]}; "
+          f"dropped share of assignments: prefill "
+          f"{dropped_share(served[:n]):.4f}, decode "
+          f"{dropped_share(served[n:]):.4f}; first sequence "
+          f"{res.tokens[0][:16].tolist()}")
+    require(all(err < LOGITS_REL_TOL for err in errs[False].values()),
+            (cfg.name, "on the served picks", errs[False]))
+    disagree = routing_disagreement(served, plain[True, "chunked"][2])
+    require(disagree["picks"] < ROUTING_DISAGREE_MAX, (cfg.name, disagree))
+
+    # drop-free: capacity = the tokens of the call, so the cached decode is
+    # the no-cache forward of the same tokens; held as above, on the served
+    # picks, with the plain forward on its own routing printed beside
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(e)))
+    res_free = serve.run(free, params, prompts, GEN)
+    _, _, free_routes = cached_path(dev, free, params, prompts, res_free.tokens)
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    seq = torch.cat([tokens, res_free.tokens[:, :-1].to(dev)], 1)
+    for own in (True, False):
+        picks = {t: None if own else no_cache_picks(free_routes, n, t.shape[1])
+                 for t in (tokens, seq)}
+        label = "its own routing" if own else "the served picks"
+        plain = {t: plain_moe_logits(free, params, t, "chunked", picks[t])
+                 for t in (tokens, seq)}
+        errs = {"prefill": rel_err(plain[tokens], res_free.prefill_logits),
+                "last_decode": rel_err(plain[seq], res_free.last_logits)}
+        floor = rel_err(plain[seq], plain_moe_logits(free, params, seq,
+                                                     "reference", picks[seq]))
+        print(f"serve {cfg.name} drop-free (capacity factor {float(e)}) vs "
+              f"the plain no-cache forward on {label}: {errs}; noise floor "
+              f"at the last decode {floor:.4f}")
+    require(all(err < LOGITS_REL_TOL for err in errs.values()),
+            (cfg.name, "drop-free, on the served picks", errs))
+
+    profile_serving(dev, cfg, params, prompts, PROMPT + GEN)
+    del params
+    return launches
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2048,7 +2328,7 @@ def link_rates(dev, nbytes=1 << 30, n=5):
 
 
 def synth_prompts(cfg, batch=BATCH, prompt=PROMPT, seed=SEED):
-    """(batch, prompt) int32 prompts, as ``serve_path`` makes them."""
+    """(batch, prompt) int32 prompts from the seeded token stream."""
     from repro_torch.data import synth
     toks = synth.lm_tokens(seed, batch * prompt + 1, cfg.vocab_size)
     return toks[:batch * prompt].reshape(batch, prompt)
@@ -2097,7 +2377,7 @@ def main() -> int:
             "ssd": check_ssd(dev, timer, peaks)}
     del timer
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
-               WINDOWED_ARCH: serve_windowed(dev),
+               WINDOWED_ARCH: serve_windowed(dev), **serve_moe(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "lm-workflow": lm_workflow_path(dev),

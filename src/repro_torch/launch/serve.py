@@ -7,12 +7,17 @@ FlashAttention kernel; the ssm family has no attention and ignores it).
 ``run`` is the library entry point; ``main`` and ``chip_smoke.py`` both
 call it. It serves the dense family, its windowed configs among them
 (gemma3-4b: ring KV caches for the local layers, flash at head_dim 256 in
-prefill), and the ssm family (mamba2-130m, whose prefill goes through the
-SSD chunk kernel).
+prefill), the MoE family (granite-moe-1b-a400m, qwen2-moe-a2.7b: every
+layer's FFN is ``models/moe.py`` ``moe_block``, whose capacity follows the
+tokens of each call, so a decode step of batch 4 runs with capacity 1 per
+expert and drops assignments, as the reference does), and the ssm family
+(mamba2-130m, whose prefill goes through the SSD chunk kernel).
 
     python -m repro_torch.launch.serve --full          # on the card
     python -m repro_torch.launch.serve --arch mamba2-130m --full
     python -m repro_torch.launch.serve --arch gemma3-4b --full --prompt-len 1536
+    python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full --prompt-len 512
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cpu
     python -m repro_torch.launch.serve --device cpu    # reduced, on the CPU
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense and ssm families (twin of the JAX package's
+"""Decoder-only LM, dense, MoE and ssm families (twin of the JAX package's
 ``models/lm.py``), the dense family's windowed configs (gemma3) included.
 
 The reference scans stacked ``blocks`` with ``jax.lax.scan``; here a Python
@@ -14,7 +14,10 @@ and a tail of ``num_layers % global_every`` local layers
 (``_windowed_stack``; without a cache such a config runs the uniform
 stack with per-layer windows, as the reference does). The ssm stack runs
 its blocks with ``use_kernel=True``, so prefill goes through the SSD chunk
-kernel (the reference's stack leaves it off).
+kernel (the reference's stack leaves it off). The MoE family's layers
+run ``models/moe.py`` ``moe_block`` in place of the MLP, and ``forward``
+returns the sum of their load-balancing losses as ``aux_loss``, as the
+reference's scan carries it.
 
 For training, each layer of the dense stack runs under
 ``torch.utils.checkpoint`` where the reference wraps its scan body in
@@ -32,7 +35,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from . import layers, ssd as ssd_lib
+from . import layers, moe as moe_lib, ssd as ssd_lib
 from .config import ArchConfig
 from .params import P, init_params, tree_map
 
@@ -44,7 +47,7 @@ class LMOut(NamedTuple):
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             "(ROADMAP queue 1 item 8)")
@@ -53,7 +56,16 @@ def _require_ported(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 # parameter definitions
 # ---------------------------------------------------------------------------
-def _ffn_defs(cfg: ArchConfig) -> dict:
+def _is_moe(cfg: ArchConfig) -> bool:
+    """Whether every layer of the stack runs the MoE FFN (the hybrid
+    family's every-other-layer pattern comes with that family)."""
+    return cfg.moe is not None and cfg.moe.every_k_layers == 1
+
+
+def _ffn_defs(cfg: ArchConfig, is_moe: bool) -> dict:
+    if is_moe:
+        return {"ln2": layers.rmsnorm_defs(cfg.d_model),
+                "moe": moe_lib.moe_defs(cfg.d_model, cfg.moe)}
     if cfg.d_ff:
         return {"ln2": layers.rmsnorm_defs(cfg.d_model),
                 "mlp": layers.mlp_defs(cfg.d_model, cfg.d_ff)}
@@ -62,12 +74,14 @@ def _ffn_defs(cfg: ArchConfig) -> dict:
 
 def _attn_layer_defs(cfg: ArchConfig) -> dict:
     return {"ln1": layers.rmsnorm_defs(cfg.d_model),
-            "attn": layers.attention_defs(cfg), **_ffn_defs(cfg)}
+            "attn": layers.attention_defs(cfg),
+            **_ffn_defs(cfg, _is_moe(cfg))}
 
 
 def _ssm_layer_defs(cfg: ArchConfig) -> dict:
     return {"ln1": layers.rmsnorm_defs(cfg.d_model),
-            "ssm": ssd_lib.ssm_defs(cfg.d_model, cfg.ssm), **_ffn_defs(cfg)}
+            "ssm": ssd_lib.ssm_defs(cfg.d_model, cfg.ssm),
+            **_ffn_defs(cfg, False)}
 
 
 def _stack(defs: Any, n: int) -> Any:
@@ -215,7 +229,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
         stack = _windowed_stack
     else:
         stack = _attn_stack
-    h, new_cache = stack(cfg, params, h, positions, cache)
+    h, new_cache, aux = stack(cfg, params, h, positions, cache)
 
     h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
@@ -223,7 +237,6 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     logits = torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
     if new_cache is not None:
         new_cache["pos"] = base + s
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     return LMOut(logits=logits, cache=new_cache, aux_loss=aux)
 
 
@@ -238,32 +251,51 @@ def _unstack(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
-# --- homogeneous attention stack (dense) --------------------------------------
+def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor, aux: torch.Tensor
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN added to the residual stream, and ``aux`` plus the
+    MoE block's load-balancing loss. Both configs of the family name
+    ``moe_impl="shard_map"``, an expert-parallel form that needs a mesh
+    (ROADMAP queue 1 item 9); without one the reference runs ``moe_block``,
+    and so does the port for every ``moe_impl``."""
+    if _is_moe(cfg):
+        x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+        out, a = moe_lib.moe_block(cfg.moe, p["moe"], x)
+        return h + out, aux + a
+    if cfg.d_ff:
+        x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
+        h = h + layers.mlp_block(p["mlp"], x)
+    return h, aux
+
+
+def _no_aux(h: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# --- homogeneous attention stack (dense, moe) ------------------------------------
 def _attn_stack(cfg, params, h, positions, cache):
     blocks = params["blocks"]
     has_cache = cache is not None
 
-    def body(h, p, window, kv_cache):
+    def body(h, aux, p, window, kv_cache):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         attn_out, _ = layers.attn_block(
             cfg, p["attn"], x, positions, window=window, kv_cache=kv_cache,
             cache_pos=cache["pos"] if has_cache else None)
-        h = h + attn_out
-        if cfg.d_ff:
-            x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
-            h = h + layers.mlp_block(p["mlp"], x)
-        return h
+        return _ffn(cfg, p, h + attn_out, aux)
 
     if torch.is_grad_enabled() and not has_cache:
         body = _maybe_remat(body, cfg)
+    aux = _no_aux(h)
     for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
         window = cfg.layer_window(i)
-        h = body(h, p, window if window is not None else layers.GLOBAL_WINDOW,
-                 (cache["k"][i], cache["v"][i]) if has_cache else None)
+        h, aux = body(h, aux, p,
+                      window if window is not None else layers.GLOBAL_WINDOW,
+                      (cache["k"][i], cache["v"][i]) if has_cache else None)
     new_cache = None
     if has_cache:
         new_cache = {"k": cache["k"], "v": cache["v"], "pos": cache["pos"]}
-    return h, new_cache
+    return h, new_cache, aux
 
 
 # --- windowed group stack (gemma3 window_cache mode) ---------------------------
@@ -276,36 +308,29 @@ def _windowed_stack(cfg, params, h, positions, cache):
     base = cache["pos"]
     w = cfg.window
 
-    def ffn(p, h):
-        if cfg.moe is not None and cfg.moe.every_k_layers == 1:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers come with the MoE family "
-                "(ROADMAP queue 1 item 8)")
-        x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
-        return h + layers.mlp_block(p["mlp"], x)
-
-    def local(p, h, ring):
+    def local(p, h, aux, ring):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         out, _ = layers.attn_block_ring(cfg, p["attn"], x, positions, ring,
                                         base, w)
-        return ffn(p, h + out)
+        return _ffn(cfg, p, h + out, aux)
 
     blocks = _unstack(params["blocks"], cfg.num_layers)
+    aux = _no_aux(h)
     for gi in range(ng):
         for i in range(g - 1):
-            h = local(blocks[gi * g + i], h, (cache["kl"][gi, i],
-                                              cache["vl"][gi, i],
-                                              cache["kpl"][gi, i]))
+            h, aux = local(blocks[gi * g + i], h, aux, (cache["kl"][gi, i],
+                                                        cache["vl"][gi, i],
+                                                        cache["kpl"][gi, i]))
         p = blocks[gi * g + g - 1]
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         out, _ = layers.attn_block(
             cfg, p["attn"], x, positions, window=None,
             kv_cache=(cache["kg"][gi, 0], cache["vg"][gi, 0]), cache_pos=base)
-        h = ffn(p, h + out)
+        h, aux = _ffn(cfg, p, h + out, aux)
     for i in range(tail):
-        h = local(blocks[ng * g + i], h,
-                  (cache["kt"][i], cache["vt"][i], cache["kpt"][i]))
-    return h, dict(cache)
+        h, aux = local(blocks[ng * g + i], h, aux,
+                       (cache["kt"][i], cache["vt"][i], cache["kpt"][i]))
+    return h, dict(cache), aux
 
 
 # --- ssm stack (mamba2) ---------------------------------------------------------
@@ -327,4 +352,4 @@ def _ssm_stack(cfg, params, h, positions, cache):
     new_cache = None
     if has_cache:
         new_cache = {"conv": cache["conv"], "h": cache["h"], "pos": cache["pos"]}
-    return h, new_cache
+    return h, new_cache, _no_aux(h)

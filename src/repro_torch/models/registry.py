@@ -1,8 +1,10 @@
 """Family dispatch (twin of the JAX package's ``models/registry.py``).
 
 Only ``lm.py`` is ported, for the dense family (the windowed configs'
-ring caches included) and the ssm family; it raises for the others, and
-the enc-dec (audio) family comes with them (ROADMAP queue 1 item 8).
+ring caches included), the MoE family (granite-moe-1b-a400m,
+qwen2-moe-a2.7b, through ``moe.py``) and the ssm family; it raises for
+the others, and the enc-dec (audio) family comes with them (ROADMAP queue
+1 item 8).
 """
 from __future__ import annotations
 

@@ -8,9 +8,10 @@ Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
 its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
 dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
 Only the dense family trains: the ssm and hybrid families need a backward
-of the SSD chunk kernel (ROADMAP queue 1 item 10), and the other families
-raise as ``lm.forward`` does (item 8). Attention trains through the plain
-paths: the FlashAttention kernel has no backward yet (queue 2).
+of the SSD chunk kernel (ROADMAP queue 1 item 10), the MoE family serves
+but its aux loss is not in the train step yet (item 10), and the other
+families raise as ``lm.forward`` does (item 8). Attention trains through
+the plain paths: the FlashAttention kernel has no backward yet (queue 2).
 
 ``prefill_step`` builds the KV cache from a full prompt in one forward;
 ``decode_step`` advances one token against it.
@@ -45,6 +46,10 @@ def _require_trainable(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family} family needs a backward "
             "of the SSD chunk kernel (ROADMAP queue 1 item 10)")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: the moe family serves but does not train yet: the "
+            "MoE aux loss in the train step (ROADMAP queue 1 item 10)")
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "

@@ -431,6 +431,144 @@ def test_windowed_forward_on_the_card_matches_the_cpu(cuda, head_dim):
         assert err < 3e-2, (step, err)
 
 
+def _moe_inputs(e, k, shared, b, s, d=256, f=128, cf=1.25):
+    """A MoE block's config, weights and bf16 input from a seeded CPU
+    generator: bf16 experts, an fp32 router wider than the init's 0.02
+    (routing clear of rounding), optional shared experts."""
+    from repro_torch.models.config import MoECfg
+    g = torch.Generator().manual_seed(e * 100 + k)
+
+    def w(*shape, scale=0.05, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=g)).to(dtype)
+
+    mcfg = MoECfg(num_experts=e, top_k=k, expert_d_ff=f, num_shared=shared,
+                  shared_d_ff=4 * f if shared else 0, capacity_factor=cf)
+    p = {"router": w(d, e, scale=0.5, dtype=torch.float32),
+         "w_gate": w(e, d, f), "w_up": w(e, d, f), "w_down": w(e, f, d)}
+    if shared:
+        p["shared"] = {"w_gate": w(d, 4 * f), "w_up": w(d, 4 * f),
+                       "w_down": w(4 * f, d)}
+        p["shared_gate"] = w(d, 1, dtype=torch.float32)
+    x = torch.randn(b, s, d, generator=g).to(torch.bfloat16)
+    return mcfg, p, x
+
+
+# (experts, top-k, shared, B, S): granite's and qwen2-moe's routing at a
+# prefill of 64 tokens and at a decode step of batch 4 (capacity 1)
+MOE_CUDA_CASES = [(32, 8, 0, 2, 32), (60, 4, 4, 2, 32), (32, 8, 0, 4, 1),
+                  (60, 4, 4, 4, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_CUDA_CASES, ids=str)
+def test_moe_block_on_the_card_matches_the_cpu(cuda, case):
+    """The same weights and input on the card and the CPU: every routing
+    integer equal, the output within 3e-2 of the CPU's max |out|."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    mcfg, p, x = _moe_inputs(*case)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        pd, xd = tree_map(lambda t: t.to(dev), p), x.to(dev)
+        rt = moe.route(mcfg, pd["router"], xd.reshape(-1, x.shape[-1]))
+        y, aux = moe.moe_block(mcfg, pd, xd)
+        out[dev] = (rt, y.float().cpu(), float(aux))
+    (rc, yc, ac), (rg, yg, ag) = out["cpu"], out["cuda"]
+    for key in ("expert_idx", "order", "keep", "flat_slot", "token_for_slot",
+                "filled"):
+        assert torch.equal(getattr(rc, key), getattr(rg, key).cpu()), key
+    assert rc.cap == rg.cap
+    assert float((yc - yg).abs().max() / yc.abs().max()) < 3e-2
+    assert abs(ac - ag) < 1e-5 * max(abs(ac), 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_CUDA_CASES, ids=str)
+def test_moe_block_is_the_same_bits_on_every_card_run(cuda, case,
+                                                      monkeypatch):
+    """Two card runs give the same bits, under
+    ``torch.use_deterministic_algorithms(True)``, which raises for an op
+    that has no deterministic card implementation: the block has none.
+    The mode asks cuBLAS for a fixed workspace (its documented setting,
+    ``CUBLAS_WORKSPACE_CONFIG``), or it raises at the experts' matmuls."""
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    mcfg, p, x = _moe_inputs(*case)
+    p, x = tree_map(lambda t: t.to(cuda), p), x.to(cuda)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        (a, aux_a), (b, aux_b) = (moe.moe_block(mcfg, p, x) for _ in range(2))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+def test_moe_forward_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+    """A reduced MoE config (capacity factor 1.25, so decode at batch 2
+    runs at capacity 1) served on the card, prefill through the flash
+    kernel, against the same weights and tokens on the CPU: prefill of 16
+    tokens and 6 teacher-forced decode steps. Routing flips where two
+    experts nearly tie and the card's bf16 hidden state rounds one ulp
+    apart, so the card first routes on its own (its picks must agree with
+    the CPU's on at least 90% of the (token, layer) rows), then takes the
+    CPU's picks, and every step's logits must be within 3e-2 of the CPU's
+    max |logit|."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe, registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import steps
+    cfg = configs.reduced(configs.get(name))
+    cfg = dataclasses.replace(cfg, attn_impl="flash", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 22),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    real = moe.top_k
+
+    def run(dev, forced=None):
+        picks = []
+
+        def top_k(probs, k):
+            idx = (real(probs, k)[1] if forced is None
+                   else forced[len(picks)].to(probs.device))
+            picks.append(idx.cpu())
+            return probs.gather(1, idx), idx
+
+        monkeypatch.setattr(moe, "top_k", top_k)
+        p = tree_map(lambda t: t.to(dev), params)
+        before = tfa_ops.flash_attention.launches_tc
+        with torch.inference_mode():
+            logits, cache = steps.prefill_step(
+                cfg, p, {"tokens": toks[:, :16].to(dev)}, max_len=22)
+            got = [logits.float().cpu()]
+            for i in range(16, 22):
+                logits, cache = steps.decode_step(
+                    cfg, p, toks[:, i:i + 1].to(dev), cache)
+                got.append(logits.float().cpu())
+        launched = tfa_ops.flash_attention.launches_tc - before
+        assert launched == (cfg.num_layers if dev == "cuda" else 0)
+        return got, picks
+
+    cpu, cpu_picks = run("cpu")
+    _, own = run("cuda")
+    rows = sum(len(a) for a in cpu_picks)
+    agree = sum(int((a == b).all(1).sum()) for a, b in zip(cpu_picks, own))
+    assert len(own) == len(cpu_picks) == 7 * cfg.num_layers
+    assert agree >= 0.9 * rows, (agree, rows)
+    card, _ = run("cuda", cpu_picks)
+    for step, (a, b) in enumerate(zip(cpu, card)):
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err < 3e-2, (step, err)
+
+
 SSD_CUDA_CASES = [
     # b, S, H, P, N, chunk: tests/test_kernels.py's cases, the reduced
     # mamba2 config, jamba's SSMCfg, then the mamba2-130m serving shape

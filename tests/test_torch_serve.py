@@ -156,13 +156,18 @@ FLEET_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
                   "repro_torch.launch.bench_fleet")
 
 
+MODEL_MODULES = ("repro_torch.models.lm", "repro_torch.models.moe",
+                 "repro_torch.models.layers", "repro_torch.models.ssd")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
     cannot slip past; the Helix core's, the training slice's and the
     paper workflows' modules are named so that none is missed) and
     ``chip_smoke`` (without running it), then check that no JAX,
     ml_dtypes or reference module was loaded. The serving and fleet
-    layer, the sweep and search drivers and their bench are named too."""
+    layer, the sweep and search drivers and their bench are named too, and
+    the model modules, the MoE block among them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -179,6 +184,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(flows) <= set(mods), sorted(set(flows) - set(mods))\n"
         f"fleet = {list(FLEET_MODULES)!r}\n"
         "assert set(fleet) <= set(mods), sorted(set(fleet) - set(mods))\n"
+        f"models = {list(MODEL_MODULES)!r}\n"
+        "assert set(models) <= set(mods), sorted(set(models) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "

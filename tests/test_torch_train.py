@@ -282,7 +282,7 @@ def test_remat_counts_one_recomputed_forward_per_norm():
 def test_other_families_and_flash_refuse_to_train():
     tok = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
     for name, match in (("mamba2-130m", "SSD"), ("jamba-v0.1-52b", "SSD"),
-                        ("granite-moe-1b-a400m", "item 8")):
+                        ("granite-moe-1b-a400m", "item 10")):
         cfg = tconfigs.reduced(tconfigs.get(name))
         with pytest.raises(NotImplementedError, match=match):
             tsteps.loss_fn(cfg, {}, tok)

@@ -427,18 +427,6 @@ def test_without_window_cache_the_uniform_cache_and_stack_serve(monkeypatch):
     assert taken == ["_attn_stack", "_windowed_stack", "_attn_stack"]
 
 
-def test_windowed_stack_moe_branch_raises_naming_its_roadmap_item():
-    from repro_torch.models.config import MoECfg
-    _, tcfg = _cfgs("reduced")
-    params = tregistry.init(tcfg, torch.Generator().manual_seed(0), "cpu")
-    moe = dataclasses.replace(tcfg, moe=MoECfg(
-        num_experts=4, top_k=2, expert_d_ff=64, every_k_layers=1))
-    cache = tregistry.init_cache(moe, B, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE.*ROADMAP queue 1 item 8"):
-        tlm.forward(moe, params, torch.zeros(B, 4, dtype=torch.int32),
-                    cache=cache)
-
-
 def test_serve_cli_runs_reduced_gemma3_on_cpu(capsys):
     serve.main(["--arch", "gemma3-4b", "--device", "cpu", "--batch", "2",
                 "--prompt-len", "12", "--gen-tokens", "6"])
