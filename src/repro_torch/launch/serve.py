@@ -10,14 +10,22 @@ call it. It serves the dense family, its windowed configs among them
 prefill), the MoE family (granite-moe-1b-a400m, qwen2-moe-a2.7b: every
 layer's FFN is ``models/moe.py`` ``moe_block``, whose capacity follows the
 tokens of each call, so a decode step of batch 4 runs with capacity 1 per
-expert and drops assignments, as the reference does), and the ssm family
-(mamba2-130m, whose prefill goes through the SSD chunk kernel).
+expert and drops assignments, as the reference does), the vlm family
+(qwen2-vl-7b: the prefill batch carries ``vision_embeds`` and the three
+M-RoPE streams; ``main`` builds them as the reference's launcher does, a
+zero 4-patch prefix and three equal streams, and decode passes neither),
+the ssm family (mamba2-130m, whose prefill goes through the SSD chunk
+kernel) and the hybrid family (jamba-v0.1-52b, whose Mamba-2 layers'
+prefill goes through the SSD chunk kernel and whose MoE layers run
+``moe_block``).
 
     python -m repro_torch.launch.serve --full          # on the card
     python -m repro_torch.launch.serve --arch mamba2-130m --full
     python -m repro_torch.launch.serve --arch gemma3-4b --full --prompt-len 1536
     python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full --prompt-len 512
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --device cpu
+    python -m repro_torch.launch.serve --arch qwen2-vl-7b --device cpu
+    python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
     python -m repro_torch.launch.serve --device cpu    # reduced, on the CPU
 """
 from __future__ import annotations
@@ -53,17 +61,26 @@ def _sync(dev: torch.device) -> None:
 
 
 def run(cfg: ArchConfig, params: Any, prompts, gen_tokens: int, *,
-        device: str | torch.device | None = None) -> ServeResult:
+        device: str | torch.device | None = None,
+        vision_embeds: torch.Tensor | None = None,
+        mrope_positions: torch.Tensor | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
     (the first comes from the prefill logits). ``params`` must live on
-    ``device`` (default ``cuda``)."""
+    ``device`` (default ``cuda``). The vlm family's ``vision_embeds`` (B,
+    npatch, D) and ``mrope_positions`` (3, B, S) go into the prefill
+    batch only."""
     dev = resolve(device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
+    batch = {"tokens": tokens}
+    for key, t in (("vision_embeds", vision_embeds),
+                   ("mrope_positions", mrope_positions)):
+        if t is not None:
+            batch[key] = t.to(dev)
     max_len = tokens.shape[1] + gen_tokens
     with torch.inference_mode():
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = steps.prefill_step(cfg, params, {"tokens": tokens},
+        logits, cache = steps.prefill_step(cfg, params, batch,
                                            max_len=max_len)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
@@ -110,7 +127,15 @@ def main(argv: list[str] | None = None) -> None:
                            cfg.vocab_size)
     prompts = toks[:args.batch * args.prompt_len].reshape(
         args.batch, args.prompt_len)
-    res = run(cfg, params, prompts, args.gen_tokens, device=dev)
+    vision = {}
+    if cfg.family == "vlm":
+        vision = {
+            "vision_embeds": torch.zeros((args.batch, 4, cfg.d_model),
+                                         dtype=torch.bfloat16, device=dev),
+            "mrope_positions": torch.arange(
+                args.prompt_len, dtype=torch.int32, device=dev).expand(
+                    3, args.batch, args.prompt_len)}
+    res = run(cfg, params, prompts, args.gen_tokens, device=dev, **vision)
 
     tok_s = args.batch * (args.gen_tokens - 1) / max(res.decode_s, 1e-9)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "

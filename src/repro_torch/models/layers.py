@@ -1,5 +1,5 @@
-"""Transformer building blocks: RMSNorm, RoPE, GQA attention with a KV
-cache or a ring KV cache, gated MLP (twin of the JAX package's
+"""Transformer building blocks: RMSNorm, RoPE and M-RoPE, GQA attention
+with a KV cache or a ring KV cache, gated MLP (twin of the JAX package's
 ``models/layers.py``).
 
 Plain functions on tensors over the reference's dict parameter tree.
@@ -49,17 +49,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections: tuple | None = None) -> torch.Tensor:
     """Rotary embedding, computed in fp32 and cast back to ``x.dtype``.
 
-    x: (B, S, H, D). positions: (B, S) integer positions.
+    x: (B, S, H, D). positions: (B, S) integer positions, or (3, B, S) for
+    M-RoPE (Qwen2-VL), where the three streams are the temporal, height
+    and width ids and ``mrope_sections`` gives the number of frequency
+    pairs each stream takes, in order (summing to D/2).
     """
-    if mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
     d = x.shape[-1]
     # rope_freqs on the tensor's device (float64 as numpy computes it), so
     # the decode loop makes no host-to-device copy per layer
     exps = torch.arange(0, d, 2, dtype=torch.float64, device=x.device) / d
     freqs = (1.0 / theta ** exps).float()                     # (d/2,)
-    ang = positions.float()[..., None] * freqs                # (B, S, d/2)
+    if mrope_sections is None:
+        ang = positions.float()[..., None] * freqs            # (B, S, d/2)
+    else:
+        if positions.dim() != 3 or sum(mrope_sections) != d // 2:
+            raise ValueError(
+                f"M-RoPE wants (3, B, S) positions and sections summing to "
+                f"{d // 2}; got {tuple(positions.shape)}, {mrope_sections}")
+        parts, start = [], 0
+        for i, n in enumerate(mrope_sections):
+            parts.append(positions[i].float()[..., None] * freqs[start:start + n])
+            start += n
+        ang = torch.cat(parts, dim=-1)                        # (B, S, d/2)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -191,13 +202,12 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     kv_cache: optional (k_cache, v_cache), each (B, S_max, KV, D);
     cache_pos: int — write offset (decode step / prefill fill).
+    mrope_positions: optional (3, B, S) M-RoPE ids: the rotary embedding
+    takes them, with ``cfg.mrope_sections``; the mask keeps ``positions``.
     Returns (out, cache). The reference returns an updated copy of the
     cache (and its serve loop donates the old one); here the new K/V are
     written in place into ``kv_cache``'s tensors, which are returned.
     """
-    if mrope_positions is not None:
-        raise NotImplementedError(
-            "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -206,8 +216,14 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if mrope_positions is not None:
+        rope_pos, sections = mrope_positions, cfg.mrope_sections
+    else:
+        rope_pos, sections = positions, None
+    q = apply_rope(q, rope_pos, cfg.rope_theta, sections)
+    k = apply_rope(k, rope_pos, cfg.rope_theta, sections)
+    if positions.dim() == 3:
+        positions = positions[0]
 
     if kv_cache is not None:
         kc, vc = kv_cache

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense, MoE and ssm families (twin of the JAX package's
-``models/lm.py``), the dense family's windowed configs (gemma3) included.
+"""Decoder-only LM: the dense, MoE, vlm, ssm and hybrid families (twin of
+the JAX package's ``models/lm.py``), the dense family's windowed configs
+(gemma3) included.
 
 The reference scans stacked ``blocks`` with ``jax.lax.scan``; here a Python
 loop walks the layer index over the same stacked tensors. The caches are
@@ -19,14 +20,28 @@ run ``models/moe.py`` ``moe_block`` in place of the MLP, and ``forward``
 returns the sum of their load-balancing losses as ``aux_loss``, as the
 reference's scan carries it.
 
+The vlm family (qwen2-vl) is the dense stack with two more inputs:
+``vision_embeds`` replace the first embeddings of the sequence, and
+``mrope_positions`` (3, B, S) drive the rotary embedding through
+``cfg.mrope_sections`` (M-RoPE). As in the reference, only the
+homogeneous attention stack sees them, and a decode step, which passes
+neither, continues from the cache's plain positions. The hybrid family
+(jamba) stacks its parameters by group: ``groups`` is a list of
+``attn_every`` layer trees (Mamba-2 layers, then one attention layer), each
+stacked over the groups; its cache holds one full-length K/V per group and
+the SSM states (groups, attn_every - 1, ...). ``_hybrid_stack`` runs the
+SSM layers through the SSD chunk kernel as the ssm stack does, and the MoE
+FFN where ``cfg.layer_is_moe`` says, counted within the group.
+
 For training, each layer of the dense stack runs under
 ``torch.utils.checkpoint`` where the reference wraps its scan body in
 ``jax.checkpoint`` (``_maybe_remat``, ``cfg.remat``), and only where grad
 mode is on and there is no cache, so serving is unchanged. Training the
-ssm family needs a backward of the SSD chunk kernel and raises in
-``train/steps.py`` (ROADMAP queue 1 item 10).
+ssm and hybrid families needs a backward of the SSD chunk kernel and
+raises in ``train/steps.py`` (ROADMAP queue 1 item 10).
 
-The other families raise ``NotImplementedError`` naming their ROADMAP item.
+The audio family (enc-dec) raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -47,7 +62,7 @@ class LMOut(NamedTuple):
 
 
 def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             "(ROADMAP queue 1 item 8)")
@@ -57,8 +72,8 @@ def _require_ported(cfg: ArchConfig) -> None:
 # parameter definitions
 # ---------------------------------------------------------------------------
 def _is_moe(cfg: ArchConfig) -> bool:
-    """Whether every layer of the stack runs the MoE FFN (the hybrid
-    family's every-other-layer pattern comes with that family)."""
+    """Whether every layer of the homogeneous stack runs the MoE FFN (the
+    hybrid family picks it per layer of a group, ``_group_defs``)."""
     return cfg.moe is not None and cfg.moe.every_k_layers == 1
 
 
@@ -72,16 +87,18 @@ def _ffn_defs(cfg: ArchConfig, is_moe: bool) -> dict:
     return {}
 
 
-def _attn_layer_defs(cfg: ArchConfig) -> dict:
+def _attn_layer_defs(cfg: ArchConfig, is_moe: bool) -> dict:
     return {"ln1": layers.rmsnorm_defs(cfg.d_model),
             "attn": layers.attention_defs(cfg),
-            **_ffn_defs(cfg, _is_moe(cfg))}
+            **_ffn_defs(cfg, is_moe)}
 
 
-def _ssm_layer_defs(cfg: ArchConfig) -> dict:
-    return {"ln1": layers.rmsnorm_defs(cfg.d_model),
-            "ssm": ssd_lib.ssm_defs(cfg.d_model, cfg.ssm),
-            **_ffn_defs(cfg, False)}
+def _ssm_layer_defs(cfg: ArchConfig, with_ffn: bool, is_moe: bool) -> dict:
+    d = {"ln1": layers.rmsnorm_defs(cfg.d_model),
+         "ssm": ssd_lib.ssm_defs(cfg.d_model, cfg.ssm)}
+    if with_ffn:
+        d.update(_ffn_defs(cfg, is_moe))
+    return d
 
 
 def _stack(defs: Any, n: int) -> Any:
@@ -90,15 +107,35 @@ def _stack(defs: Any, n: int) -> Any:
                                 p.scale, p.dtype), defs)
 
 
+def _n_groups(cfg: ArchConfig) -> int:
+    return cfg.num_layers // cfg.attn_every
+
+
+def _group_defs(cfg: ArchConfig) -> list[dict]:
+    """A jamba group of ``attn_every`` layers: SSM layers, attention last,
+    each with an FFN that is MoE where ``cfg.layer_is_moe(i)`` (``i``
+    counted within the group)."""
+    last = cfg.attn_every - 1
+    return [_attn_layer_defs(cfg, cfg.layer_is_moe(i)) if i == last
+            else _ssm_layer_defs(cfg, True, cfg.layer_is_moe(i))
+            for i in range(cfg.attn_every)]
+
+
 def param_defs(cfg: ArchConfig) -> dict:
     _require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab_size
-    layer = _ssm_layer_defs if cfg.family == "ssm" else _attn_layer_defs
     defs: dict = {
         "embed": P((v, d), ("vocab", "embed")),
         "final_norm": layers.rmsnorm_defs(d),
-        "blocks": _stack(layer(cfg), cfg.num_layers),
     }
+    if cfg.family == "hybrid":
+        defs["groups"] = _stack(_group_defs(cfg), _n_groups(cfg))
+    elif cfg.family == "ssm":
+        defs["blocks"] = _stack(_ssm_layer_defs(cfg, bool(cfg.d_ff), False),
+                                cfg.num_layers)
+    else:
+        defs["blocks"] = _stack(_attn_layer_defs(cfg, _is_moe(cfg)),
+                                cfg.num_layers)
     if not cfg.tie_embeddings:
         defs["lm_head"] = P((d, v), ("embed", "vocab"))
     return defs
@@ -129,10 +166,23 @@ def _window_groups(cfg: ArchConfig) -> tuple[int, int, int]:
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device | str) -> dict:
     """Dense KV cache, the ring caches of a windowed config with
-    ``window_cache``, or the ssm family's conv and SSM states: the
+    ``window_cache``, the ssm family's conv and SSM states, or the hybrid
+    family's K/V per group and SSM states per group and SSM layer: the
     reference's leaves, shapes, dtypes and fill values. ``pos`` (the next
     write offset) is a host int."""
     _require_ported(cfg)
+    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "hybrid":
+        ng, n_ssm = _n_groups(cfg), cfg.attn_every - 1
+        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
+        shape = (ng, batch, max_len, kvh, hd)
+        return {
+            "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "conv": conv.new_zeros((ng, n_ssm) + conv.shape),
+            "h": h.new_zeros((ng, n_ssm) + h.shape),
+            "pos": 0,
+        }
     if cfg.family == "ssm":
         conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
         return {
@@ -140,7 +190,6 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
             "h": h.new_zeros((cfg.num_layers,) + h.shape),
             "pos": 0,
         }
-    kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if _windowed(cfg):
         ng, g, tail = _window_groups(cfg)
         w = min(cfg.window, max_len)
@@ -210,26 +259,30 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
 
     With ``cache``: writes K/V (or the SSM states) at ``cache['pos']`` (in
     place) and returns the cache with ``pos`` advanced — S == 1 is the
-    decode step, S > 1 prefill.
+    decode step, S > 1 prefill. ``vision_embeds`` (B, npatch, D) replace
+    the first ``npatch`` token embeddings; ``mrope_positions`` (3, B, S)
+    are the rotary ids of the homogeneous attention stack (vlm).
     """
     _require_ported(cfg)
-    if vision_embeds is not None or mrope_positions is not None:
-        raise NotImplementedError(
-            "vision inputs come with the vlm family (ROADMAP queue 1 item 8)")
     b, s = tokens.shape
     h = embed_lookup(cfg, params["embed"], tokens)
+    if vision_embeds is not None:
+        npatch = vision_embeds.shape[1]
+        h = torch.cat([vision_embeds.to(h.dtype), h[:, npatch:]], dim=1)
     base = cache["pos"] if cache is not None else 0
     if positions is None:
         positions = torch.arange(base, base + s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
 
-    if cfg.family == "ssm":
-        stack = _ssm_stack
+    if cfg.family == "hybrid":
+        h, new_cache, aux = _hybrid_stack(cfg, params, h, positions, cache)
+    elif cfg.family == "ssm":
+        h, new_cache, aux = _ssm_stack(cfg, params, h, positions, cache)
     elif cache is not None and _windowed(cfg):
-        stack = _windowed_stack
+        h, new_cache, aux = _windowed_stack(cfg, params, h, positions, cache)
     else:
-        stack = _attn_stack
-    h, new_cache, aux = stack(cfg, params, h, positions, cache)
+        h, new_cache, aux = _attn_stack(cfg, params, h, positions, cache,
+                                        mrope_positions)
 
     h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     head = (params["embed"].T if cfg.tie_embeddings
@@ -253,16 +306,17 @@ def _unstack(tree: Any, n: int) -> list:
 
 def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor, aux: torch.Tensor
          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The layer's FFN added to the residual stream, and ``aux`` plus the
-    MoE block's load-balancing loss. Both configs of the family name
+    """The FFN the layer's parameters hold (the MoE block or the MLP, as
+    its defs chose) added to the residual stream, and ``aux`` plus the MoE
+    block's load-balancing loss. The MoE configs name
     ``moe_impl="shard_map"``, an expert-parallel form that needs a mesh
     (ROADMAP queue 1 item 9); without one the reference runs ``moe_block``,
     and so does the port for every ``moe_impl``."""
-    if _is_moe(cfg):
+    if "moe" in p:
         x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
         out, a = moe_lib.moe_block(cfg.moe, p["moe"], x)
         return h + out, aux + a
-    if cfg.d_ff:
+    if "mlp" in p:
         x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
         h = h + layers.mlp_block(p["mlp"], x)
     return h, aux
@@ -272,8 +326,8 @@ def _no_aux(h: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-# --- homogeneous attention stack (dense, moe) ------------------------------------
-def _attn_stack(cfg, params, h, positions, cache):
+# --- homogeneous attention stack (dense, moe, vlm) -------------------------------
+def _attn_stack(cfg, params, h, positions, cache, mrope_positions):
     blocks = params["blocks"]
     has_cache = cache is not None
 
@@ -281,7 +335,8 @@ def _attn_stack(cfg, params, h, positions, cache):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         attn_out, _ = layers.attn_block(
             cfg, p["attn"], x, positions, window=window, kv_cache=kv_cache,
-            cache_pos=cache["pos"] if has_cache else None)
+            cache_pos=cache["pos"] if has_cache else None,
+            mrope_positions=mrope_positions)
         return _ffn(cfg, p, h + attn_out, aux)
 
     if torch.is_grad_enabled() and not has_cache:
@@ -337,19 +392,51 @@ def _windowed_stack(cfg, params, h, positions, cache):
 def _ssm_stack(cfg, params, h, positions, cache):
     blocks = params["blocks"]
     has_cache = cache is not None
+    aux = _no_aux(h)
     for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
         state = (cache["conv"][i], cache["h"][i]) if has_cache else None
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         out, (conv, hst) = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,
                                              use_kernel=True)
-        h = h + out
-        if cfg.d_ff:
-            x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
-            h = h + layers.mlp_block(p["mlp"], x)
+        h, aux = _ffn(cfg, p, h + out, aux)
         if has_cache:
             cache["conv"][i].copy_(conv)
             cache["h"][i].copy_(hst)
     new_cache = None
     if has_cache:
         new_cache = {"conv": cache["conv"], "h": cache["h"], "pos": cache["pos"]}
-    return h, new_cache, _no_aux(h)
+    return h, new_cache, aux
+
+
+# --- hybrid group stack (jamba) -------------------------------------------------
+def _hybrid_stack(cfg, params, h, positions, cache):
+    """Groups of ``attn_every`` layers: Mamba-2 layers through the SSD
+    chunk kernel (``use_kernel=True``, as ``_ssm_stack``), then one
+    attention layer over the group's full-length cache, each followed by
+    its FFN (``_ffn``: MoE where the group's defs put it, adding its aux
+    loss). The caches are written in place. Serving only: training the
+    family needs the SSD backward, so nothing is checkpointed."""
+    has_cache = cache is not None
+    ng, n_ssm = _n_groups(cfg), cfg.attn_every - 1
+    sublayers = [_unstack(tree, ng) for tree in params["groups"]]
+    aux = _no_aux(h)
+    for g in range(ng):
+        for i in range(cfg.attn_every):
+            p = sublayers[i][g]
+            x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+            if i < n_ssm:
+                state = ((cache["conv"][g, i], cache["h"][g, i]) if has_cache
+                         else None)
+                out, (conv, hst) = ssd_lib.ssm_block(
+                    cfg, cfg.ssm, p["ssm"], x, state, use_kernel=True)
+                if has_cache:
+                    cache["conv"][g, i].copy_(conv)
+                    cache["h"][g, i].copy_(hst)
+            else:
+                out, _ = layers.attn_block(
+                    cfg, p["attn"], x, positions, window=None,
+                    kv_cache=(cache["k"][g], cache["v"][g]) if has_cache
+                    else None,
+                    cache_pos=cache["pos"] if has_cache else None)
+            h, aux = _ffn(cfg, p, h + out, aux)
+    return h, dict(cache) if has_cache else None, aux

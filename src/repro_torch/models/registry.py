@@ -2,9 +2,11 @@
 
 Only ``lm.py`` is ported, for the dense family (the windowed configs'
 ring caches included), the MoE family (granite-moe-1b-a400m,
-qwen2-moe-a2.7b, through ``moe.py``) and the ssm family; it raises for
-the others, and the enc-dec (audio) family comes with them (ROADMAP queue
-1 item 8).
+qwen2-moe-a2.7b, through ``moe.py``), the vlm family (qwen2-vl-7b:
+M-RoPE and the vision splice), the ssm family and the hybrid family
+(jamba-v0.1-52b: Mamba-2, attention and MoE layers in groups); it raises
+for the enc-dec (audio) family, which comes with ``encdec.py`` (ROADMAP
+queue 1 item 8).
 """
 from __future__ import annotations
 

@@ -7,10 +7,12 @@ clipping, the 1-indexed warmup-cosine schedule and AdamW (fp32 moments).
 Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
 its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
 dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
-Only the dense family trains: the ssm and hybrid families need a backward
-of the SSD chunk kernel (ROADMAP queue 1 item 10), the MoE family serves
-but its aux loss is not in the train step yet (item 10), and the other
-families raise as ``lm.forward`` does (item 8). Attention trains through
+The dense and vlm families train (the vlm batch adds ``vision_embeds`` and
+``mrope_positions``, split into microbatches as the reference splits
+them): the ssm and hybrid families need a backward of the SSD chunk
+kernel (ROADMAP queue 1 item 10), the MoE family serves but its aux loss
+is not in the train step yet (item 10), and the audio family raises as
+``lm.forward`` does (item 8). Attention trains through
 the plain paths: the FlashAttention kernel has no backward yet (queue 2).
 
 ``prefill_step`` builds the KV cache from a full prompt in one forward;
@@ -50,7 +52,7 @@ def _require_trainable(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the moe family serves but does not train yet: the "
             "MoE aux loss in the train step (ROADMAP queue 1 item 10)")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
             "(ROADMAP queue 1 item 8)")
@@ -85,7 +87,8 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: Any, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """batch keys: tokens (B, S) [+ loss_mask]. Next-token LM loss.
+    """batch keys: tokens (B, S) [+ loss_mask, vision_embeds,
+    mrope_positions]. Next-token LM loss.
     Returns (loss + 0.01·aux, {"loss", "aux_loss"})."""
     _require_trainable(cfg)
     tokens = batch["tokens"]
@@ -134,11 +137,12 @@ def train_step(cfg: ArchConfig, state: TrainState, batch: dict, *,
         metrics, grads = value_and_grad(cfg, state.params, batch)
         grads = tree_map(lambda g: g.to(torch.float32), grads)
     else:
-        if "mrope_positions" in batch:
-            raise NotImplementedError(
-                "M-RoPE comes with the vlm family (ROADMAP queue 1 item 8)")
-        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                 for k, v in batch.items()}
+        micro = {}
+        for k, v in batch.items():
+            if k == "mrope_positions":   # (3, B, S) -> (accum, 3, B/a, S)
+                micro[k] = v.reshape(3, accum, -1, v.shape[-1]).movedim(1, 0)
+            else:
+                micro[k] = v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), state.params)
         metrics = {k: torch.zeros((), dtype=torch.float32,

@@ -74,6 +74,9 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
 RMSNORM_LAYOUT_CASES = [
     (4, 768), (4, 1536), (4, 2048), (4, 2560),
     (2048, 768), (2048, 1536), (2048, 2048), (6144, 2560),
+    # qwen2-vl-7b (D 3584), jamba's norms (D 4096) and its gated norm over
+    # d_inner (D 8192, fp32 on the serving path)
+    (4, 3584), (2048, 3584), (4, 4096), (2048, 4096), (4, 8192), (2048, 8192),
     (3, 776), (2049, 776), (600, 12288), (300, 12296), (5, 40000), (4, 72),
 ]
 
@@ -298,6 +301,12 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (2, 300, 330, 8, 4, 256, True, 150, 30),
     (4, 1536, 1536, 8, 4, 256, True, 1024, 0),
     (4, 1536, 1568, 8, 4, 256, True, 0, 0),
+    # qwen2-vl-7b's GQA group of 7 (28 query heads over 4): ragged Sq and
+    # Sk with an offset, then its prefill; jamba's prefill (32 over 8)
+    (2, 65, 129, 7, 1, 128, True, 0, 64),
+    (1, 127, 131, 14, 2, 128, True, 0, 4),
+    (4, 512, 544, 28, 4, 128, True, 0, 0),
+    (4, 512, 544, 32, 8, 128, True, 0, 0),
 ]
 
 
@@ -508,17 +517,19 @@ def test_moe_block_is_the_same_bits_on_every_card_run(cuda, case,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
 def test_moe_forward_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
-    """A reduced MoE config (capacity factor 1.25, so decode at batch 2
-    runs at capacity 1) served on the card, prefill through the flash
-    kernel, against the same weights and tokens on the CPU: prefill of 16
-    tokens and 6 teacher-forced decode steps. Routing flips where two
-    experts nearly tie and the card's bf16 hidden state rounds one ulp
-    apart, so the card first routes on its own (its picks must agree with
-    the CPU's on at least 90% of the (token, layer) rows), then takes the
-    CPU's picks, and every step's logits must be within 3e-2 of the CPU's
-    max |logit|."""
+    """A reduced config with MoE layers (capacity factor 1.25, so decode at
+    batch 2 runs at capacity 1) served on the card, prefill through the
+    flash kernel (and, for jamba's Mamba-2 layers, the SSD kernel),
+    against the same weights and tokens on the CPU: prefill of 16 tokens
+    and 6 teacher-forced decode steps. Routing flips where two experts
+    nearly tie and the card's bf16 hidden state rounds one ulp apart, so
+    the card first routes on its own (its picks must agree with the CPU's
+    on at least 90% of the (token, layer) rows), then takes the CPU's
+    picks, and every step's logits must be within 3e-2 of the CPU's max
+    |logit|."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import moe, registry
@@ -554,14 +565,16 @@ def test_moe_forward_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
                     cfg, p, toks[:, i:i + 1].to(dev), cache)
                 got.append(logits.float().cpu())
         launched = tfa_ops.flash_attention.launches_tc - before
-        assert launched == (cfg.num_layers if dev == "cuda" else 0)
+        assert launched == (n_attn if dev == "cuda" else 0)
         return got, picks
 
+    n_attn = sum(cfg.layer_is_attn(i) for i in range(cfg.num_layers))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
     cpu, cpu_picks = run("cpu")
     _, own = run("cuda")
     rows = sum(len(a) for a in cpu_picks)
     agree = sum(int((a == b).all(1).sum()) for a, b in zip(cpu_picks, own))
-    assert len(own) == len(cpu_picks) == 7 * cfg.num_layers
+    assert len(own) == len(cpu_picks) == 7 * n_moe
     assert agree >= 0.9 * rows, (agree, rows)
     card, _ = run("cuda", cpu_picks)
     for step, (a, b) in enumerate(zip(cpu, card)):
@@ -569,9 +582,58 @@ def test_moe_forward_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
         assert err < 3e-2, (step, err)
 
 
+@pytest.mark.cuda
+def test_vlm_forward_on_the_card_matches_the_cpu(cuda):
+    """The reduced qwen2-vl served on the card (flash in prefill, RMSNorm
+    everywhere) with a 9-patch vision prefix and three different M-RoPE
+    streams (a 3 x 3 grid at t = 0, h = row, w = col, text from 3), against
+    the same weights and inputs on the CPU: prefill of 16 tokens and 6
+    teacher-forced decode steps, each step's logits within 3e-2 of the
+    CPU's max |logit|."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(configs.reduced(configs.get("qwen2-vl-7b")),
+                              attn_impl="flash")
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 22), generator=g,
+                         dtype=torch.int32)
+    vision = torch.randn(2, 9, cfg.d_model, generator=g).bfloat16()
+    r = torch.arange(9)
+    pos = torch.cat([torch.stack([torch.zeros(9, dtype=torch.long),
+                                  r // 3, r % 3]),
+                     (3 + torch.arange(7)).expand(3, 7)], 1)
+    pos = pos[:, None].expand(3, 2, 16).to(torch.int32)
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = tfa_ops.flash_attention.launches_tc
+        with torch.inference_mode():
+            logits, cache = steps.prefill_step(
+                cfg, p, {"tokens": toks[:, :16].to(dev),
+                         "vision_embeds": vision.to(dev),
+                         "mrope_positions": pos.to(dev)}, max_len=22)
+            got = [logits.float().cpu()]
+            for i in range(16, 22):
+                logits, cache = steps.decode_step(
+                    cfg, p, toks[:, i:i + 1].to(dev), cache)
+                got.append(logits.float().cpu())
+        launched = tfa_ops.flash_attention.launches_tc - before
+        assert launched == (cfg.num_layers if dev == "cuda" else 0)
+        return got
+
+    for step, (a, b) in enumerate(zip(run("cpu"), run("cuda"))):
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err < 3e-2, (step, err)
+
+
 SSD_CUDA_CASES = [
     # b, S, H, P, N, chunk: tests/test_kernels.py's cases, the reduced
-    # mamba2 config, jamba's SSMCfg, then the mamba2-130m serving shape
+    # mamba2 config, jamba's SSMCfg, the mamba2-130m serving shape, then
+    # jamba's serving shape (128 heads: blocks of 8 heads)
     (2, 64, 3, 16, 32, 16),
     (1, 128, 4, 32, 16, 32),
     (2, 48, 2, 16, 8, 16),
@@ -579,6 +641,7 @@ SSD_CUDA_CASES = [
     (2, 16, 16, 16, 16, 8),
     (1, 256, 4, 64, 16, 128),
     (4, 512, 24, 64, 128, 128),
+    (4, 512, 128, 64, 16, 128),      # jamba's prefill at full width
 ]
 
 
@@ -652,11 +715,16 @@ def test_ssd_tensor_core_kernel_matches_plain_padded_and_grouped(cuda, case):
 
 @pytest.mark.cuda
 def test_ssd_serving_and_jamba_shapes_run_on_the_tensor_core_kernel(cuda):
-    """bf16 at the mamba2 serving shape and at jamba's (N = 16) takes the
-    tensor-core kernel; fp32 at the serving shape does not."""
+    """bf16 at the mamba2 serving shape and at jamba's (N = 16; its serving
+    shape with 128 heads in blocks of 8) takes the tensor-core kernel; fp32
+    at the serving shape does not."""
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if n_sms == 132:
+        assert tssd_ops.head_group(4, 4, 128, n_sms) == 8
     g = torch.Generator(device=cuda).manual_seed(5)
     for case, dtype, tc in [((4, 512, 24, 64, 128, 128), "bfloat16", True),
                             ((1, 256, 4, 64, 16, 128), "bfloat16", True),
+                            ((4, 512, 128, 64, 16, 128), "bfloat16", True),
                             ((4, 512, 24, 64, 128, 128), "float32", False)]:
         b, S, H, P, N, L = case
         x, dt, a, Bm, Cm = _ssd_inputs(case, dtype, g, cuda)

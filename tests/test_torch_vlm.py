@@ -1,0 +1,379 @@
+"""The port's vlm family (qwen2-vl-7b: M-RoPE and the vision splice) vs the
+JAX package's, on the CPU at reduced size.
+
+Weights come from the reference ``registry.init`` and cross through
+``convert.params_from_numpy`` in this process; inputs (tokens, vision
+embeddings, M-RoPE ids) are numpy from a seed, fed to both packages.
+
+M-RoPE with three equal streams is plain RoPE, bit for bit, and that is
+what the reference's own tests and launcher feed it
+(``tests/test_smoke_archs.py`` ``_batch``, ``launch/serve.py``): a port
+that ignored ``mrope_sections`` would pass all of them. So every M-RoPE
+check here runs three different streams, in Qwen2-VL's layout
+(``grid_positions``: a patch grid at t = 0, h = row, w = col, then text
+from the grid's largest id + 1 in all three streams), and one test shows
+that the streams change the output.
+
+Tolerances, each stated where it is used: the rotary embedding in fp32
+at 1e-6 absolute on unit-scale values (cos and sin may round one fp32 ulp
+apart between XLA and torch); model logits at 3e-2 of max |logit|, as
+``tests/test_smoke_archs.py::test_prefill_decode_consistency`` holds the
+reference's own (both run bf16 and round it at other places); training
+as ``tests/test_torch_train.py`` holds it.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import torch
+
+from repro import configs as jconfigs
+from repro.models import layers as jlayers, lm as jlm, registry as jregistry
+from repro.train import steps as jsteps
+from repro_torch import configs as tconfigs
+from repro_torch.core.tree import tree_leaves
+from repro_torch.launch import serve
+from repro_torch.models import convert, layers as tlayers, lm as tlm
+from repro_torch.train import steps as tsteps
+
+NAME = "qwen2-vl-7b"
+REL_TOL = 3e-2
+ROPE_TOL = 1e-6
+GRAD_RTOL = 3e-2       # bf16 gradients, relative to each leaf's max |g|
+LOSS_RTOL = 1e-4       # the fp32 loss of bf16 logits
+GNORM_RTOL = 2e-3      # the fp32 norm over every bf16 gradient
+B, PREFILL, TOTAL, GRID = 2, 16, 22, 3   # a 3 x 3 patch prefix
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: several test processes share
+    the cores, and torch's OpenMP pool would spin at each small op."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def rel_err(ref, out) -> float:
+    ref, out = np.asarray(ref, np.float32), np.asarray(out, np.float32)
+    return float(np.max(np.abs(ref - out)) / (np.max(np.abs(ref)) + 1e-9))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.float().numpy()
+
+
+def grid_positions(batch: int, seq: int, grid: int, decode: int = 0
+                   ) -> np.ndarray:
+    """(3, batch, seq + decode) int32 M-RoPE ids in Qwen2-VL's layout: a
+    ``grid`` x ``grid`` patch prefix at t = 0, h = row, w = col, then the
+    text from the prefix's largest id + 1 in all three streams; then
+    ``decode`` positions as the reference's decode step takes them, its
+    cache position ``seq + i`` in all three."""
+    n = grid * grid
+    r = np.arange(n)
+    vis = np.stack([np.zeros(n), r // grid, r % grid])
+    text = np.broadcast_to(grid + np.arange(seq - n), (3, seq - n))
+    dec = np.broadcast_to(seq + np.arange(decode), (3, decode))
+    pos = np.concatenate([vis, text, dec], 1).astype(np.int32)
+    return np.ascontiguousarray(
+        np.broadcast_to(pos[:, None], (3, batch, pos.shape[1])))
+
+
+def equal_positions(batch: int, seq: int) -> np.ndarray:
+    """The reference launcher's streams: ``arange(seq)`` in all three."""
+    return np.ascontiguousarray(np.broadcast_to(
+        np.arange(seq, dtype=np.int32), (3, batch, seq)))
+
+
+def _models(qk_scale: float = 1.0):
+    """(reference cfg, port cfg, reference params, port params) of the
+    reduced qwen2-vl (4 layers, 4 query heads over 1 KV head, sections
+    (4, 6, 6)), with ``wq`` and ``wk`` times ``qk_scale``; the port serves
+    through flash (its plain version on the CPU), the reference through
+    its default "chunked" path."""
+    jcfg = jconfigs.reduced(jconfigs.get(NAME))
+    tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get(NAME)),
+                               attn_impl="flash")
+    jparams = jregistry.init(jcfg, jax.random.PRNGKey(0))
+    attn = jparams["blocks"]["attn"]
+    for key in ("wq", "wk"):
+        attn[key] = (attn[key] * qk_scale).astype(attn[key].dtype)
+    tparams = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    return jcfg, tcfg, jparams, tparams
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _models()
+
+
+def _inputs(cfg, seq, seed=0, npatch=GRID * GRID, batch=B):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    vision = rng.normal(size=(batch, npatch, cfg.d_model)).astype(np.float32)
+    return toks, vision
+
+
+def _bf16(a: np.ndarray):
+    """The same bf16 values for both packages."""
+    j = jnp.asarray(a, jnp.bfloat16)
+    return j, convert.tensor_from_numpy(np.asarray(j))
+
+
+# ----------------------------------------------------------------- M-RoPE
+@pytest.mark.parametrize("d, sections", [(32, (4, 6, 6)), (128, (16, 24, 24))])
+def test_apply_rope_with_three_streams_matches_reference(d, sections):
+    """fp32 at 1e-6 absolute on unit-scale values, with three different
+    streams (the grid layout) and, for the full config's head_dim 128 and
+    sections (16, 24, 24), positions past 1,000."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 40, 3, d)).astype(np.float32)
+    pos = grid_positions(2, 40, 5) + (1000 if d == 128 else 0)
+    want = np.asarray(jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos),
+                                         1e4, sections))
+    got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e4,
+                             sections).numpy()
+    assert np.abs(want - got).max() <= ROPE_TOL
+
+
+def test_mrope_streams_change_the_rotation():
+    """The trap: with three equal streams M-RoPE is plain RoPE bit for bit,
+    so only different streams show that the sections are read. Each
+    section must take its own stream: rotating by stream 0 alone, or with
+    the sections in another order, gives other values."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2, 40, 3, 32)).astype(np.float32))
+    eq = torch.from_numpy(equal_positions(2, 40))
+    assert torch.equal(tlayers.apply_rope(x, eq, 1e4, (4, 6, 6)),
+                       tlayers.apply_rope(x, eq[0], 1e4))
+    pos = torch.from_numpy(grid_positions(2, 40, 5))
+    mrope = tlayers.apply_rope(x, pos, 1e4, (4, 6, 6))
+    for other in (tlayers.apply_rope(x, pos[0], 1e4),
+                  tlayers.apply_rope(x, pos, 1e4, (6, 6, 4))):
+        assert float((mrope - other).abs().max()) > 0.1
+
+
+def test_apply_rope_refuses_sections_that_do_not_fit():
+    x = torch.zeros(1, 4, 2, 32)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        tlayers.apply_rope(x, torch.zeros(3, 1, 4), 1e4, (4, 6, 4))
+    with pytest.raises(ValueError, match="M-RoPE"):
+        tlayers.apply_rope(x, torch.zeros(1, 4), 1e4, (4, 6, 6))
+
+
+# ---------------------------------------------------------------- forward
+def test_vlm_param_defs_match_reference_leaf_for_leaf(models):
+    jcfg, _, jparams, tparams = models
+    jl = jax.tree_util.tree_leaves(jparams)
+    tl = tree_leaves(tparams)
+    assert len(jl) == len(tl)
+    for a, t in zip(jl, tl):
+        assert tuple(t.shape) == a.shape
+        assert str(t.dtype).removeprefix("torch.") == np.dtype(a.dtype).name
+    assert "bq" in tparams["blocks"]["attn"]      # qwen2's qkv bias
+
+
+@pytest.mark.parametrize("vision, streams", [
+    (True, "grid"), (False, "grid"), (True, "equal"), (False, None)])
+def test_vlm_forward_matches_reference(models, vision, streams):
+    """The no-cache forward over 16 tokens, with and without the 9-patch
+    vision prefix, with the grid's streams, equal streams, or none: the
+    logits at 3e-2 of max |logit|."""
+    jcfg, tcfg, jparams, tparams = models
+    toks, vis = _inputs(jcfg, PREFILL, seed=3)
+    pos = {"grid": grid_positions(B, PREFILL, GRID),
+           "equal": equal_positions(B, PREFILL), None: None}[streams]
+    jvis, tvis = _bf16(vis) if vision else (None, None)
+    want = jlm.forward(jcfg, jparams, jnp.asarray(toks), vision_embeds=jvis,
+                       mrope_positions=None if pos is None else jnp.asarray(pos))
+    with torch.no_grad():
+        got = tlm.forward(tcfg, tparams, torch.from_numpy(toks),
+                          vision_embeds=tvis,
+                          mrope_positions=None if pos is None
+                          else torch.from_numpy(pos))
+    assert got.logits.shape == want.logits.shape
+    assert rel_err(want.logits, _np(got.logits)) < REL_TOL
+    assert float(got.aux_loss) == float(want.aux_loss) == 0.0
+
+
+def test_grid_streams_move_the_model_logits():
+    """The trap at model level. At the init's scale (0.02) attention is
+    nearly flat and positions move the logits by only ~2-4%, inside the
+    3e-2 the packages are held to; with ``wq`` and ``wk`` 4x (sharper
+    attention, as trained weights have) the port still meets the
+    reference with the grid's streams, and equal streams move its logits
+    by far more than that bound, so a port that ignored the sections
+    would fail."""
+    jcfg, tcfg, jparams, tparams = _models(qk_scale=4.0)
+    toks, vis = _inputs(tcfg, PREFILL, seed=3)
+    jvis, tvis = _bf16(vis)
+    grid = grid_positions(B, PREFILL, GRID)
+    want = jlm.forward(jcfg, jparams, jnp.asarray(toks), vision_embeds=jvis,
+                       mrope_positions=jnp.asarray(grid)).logits
+    with torch.no_grad():
+        out = {k: tlm.forward(tcfg, tparams, torch.from_numpy(toks),
+                              vision_embeds=tvis,
+                              mrope_positions=torch.from_numpy(p)).logits
+               for k, p in (("grid", grid),
+                            ("equal", equal_positions(B, PREFILL)))}
+    assert rel_err(want, _np(out["grid"])) < REL_TOL
+    assert rel_err(_np(out["equal"]), _np(out["grid"])) > 3 * REL_TOL
+
+
+def test_vlm_uses_vision_embeds(models):
+    """Twin of ``tests/test_smoke_archs.py::test_vlm_uses_vision_embeds``,
+    with the grid's streams: the prefix moves the logits, and only the
+    prefix's embeddings are replaced (the same tokens after it, the same
+    vision input, give the same logits whatever the prefix's tokens)."""
+    _, tcfg, _, tparams = models
+    toks, vis = _inputs(tcfg, PREFILL, seed=4)
+    pos = torch.from_numpy(grid_positions(B, PREFILL, GRID))
+    _, tvis = _bf16(vis)
+    other = toks.copy()
+    other[:, :GRID * GRID] = (other[:, :GRID * GRID] + 1) % tcfg.vocab_size
+
+    def fwd(t, v):
+        with torch.no_grad():
+            return tlm.forward(tcfg, tparams, torch.from_numpy(t),
+                               vision_embeds=v, mrope_positions=pos).logits
+
+    base = fwd(toks, tvis)
+    assert not torch.allclose(base.float(), fwd(toks, tvis + 1.0).float())
+    assert torch.equal(base, fwd(other, tvis))
+
+
+# -------------------------------------------------------- prefill + decode
+@pytest.fixture(scope="module")
+def served(models):
+    """Prefill of PREFILL tokens with the vision prefix and the grid's
+    streams, then teacher-forced decode to TOTAL, in both packages; the
+    port's no-cache forward over all TOTAL tokens with the streams the
+    decode steps take (the cache position in all three)."""
+    jcfg, tcfg, jparams, tparams = models
+    toks, vis = _inputs(jcfg, TOTAL, seed=5)
+    jvis, tvis = _bf16(vis)
+    pos = grid_positions(B, PREFILL, GRID)
+    prefill = jax.jit(lambda p, b: jsteps.prefill_step(jcfg, p, b,
+                                                      max_len=TOTAL))
+    decode = jax.jit(lambda p, t, c: jsteps.decode_step(jcfg, p, t, c))
+    jl, jc = prefill(jparams, {"tokens": jnp.asarray(toks[:, :PREFILL]),
+                               "vision_embeds": jvis,
+                               "mrope_positions": jnp.asarray(pos)})
+    jsteps_ = [np.asarray(jl, np.float32)]
+    for i in range(PREFILL, TOTAL):
+        jl, jc = decode(jparams, jnp.asarray(toks[:, i:i + 1]), jc)
+        jsteps_.append(np.asarray(jl, np.float32))
+    with torch.inference_mode():
+        tl, tc = tsteps.prefill_step(
+            tcfg, tparams, {"tokens": torch.from_numpy(toks[:, :PREFILL]),
+                            "vision_embeds": tvis,
+                            "mrope_positions": torch.from_numpy(pos)},
+            max_len=TOTAL)
+        tsteps_ = [_np(tl)]
+        for i in range(PREFILL, TOTAL):
+            tl, tc = tsteps.decode_step(tcfg, tparams,
+                                        torch.from_numpy(toks[:, i:i + 1]), tc)
+            tsteps_.append(_np(tl))
+        full = tlm.forward(
+            tcfg, tparams, torch.from_numpy(toks), vision_embeds=tvis,
+            mrope_positions=torch.from_numpy(
+                grid_positions(B, PREFILL, GRID, TOTAL - PREFILL))).logits
+    return {"steps": list(zip(jsteps_, tsteps_)),
+            "cache": (jax.tree_util.tree_map(np.asarray, jc), tc),
+            "full": _np(full)}
+
+
+def test_vlm_prefill_and_teacher_forced_decode_match_reference(served):
+    assert len(served["steps"]) == TOTAL - PREFILL + 1
+    for step, (jl, tl) in enumerate(served["steps"]):
+        assert rel_err(jl, tl) < REL_TOL, step
+
+
+def test_vlm_kv_cache_matches_reference(served):
+    jc, tc = served["cache"]
+    assert tc["pos"] == int(jc["pos"]) == TOTAL
+    for key in ("k", "v"):
+        assert tuple(tc[key].shape) == jc[key].shape
+        for layer in range(jc[key].shape[0]):
+            assert rel_err(jc[key][layer], _np(tc[key][layer])) < REL_TOL
+
+
+def test_vlm_decode_continues_from_the_cache_position(served):
+    """Each cached step against the no-cache forward whose decode
+    positions are the cache position ``PREFILL + i`` in all three streams
+    (the reference's decode step, not Qwen2-VL's max id + 1 + i)."""
+    full = served["full"]
+    for i, (_, tl) in enumerate(served["steps"]):
+        assert rel_err(full[:, PREFILL - 1 + i], tl) < REL_TOL, i
+
+
+# ---------------------------------------------------------------- training
+def test_vlm_train_step_at_grad_accum_2_matches_reference():
+    """One ``train_step`` at ``grad_accum`` 2 from the same state and
+    batch (vision prefix, the grid's streams, split into microbatches
+    along B): loss and grad norm, and every leaf's first moment, which
+    after one step is 0.1 x the clipped gradient (bf16 gradients: 3e-2 of
+    the leaf's max)."""
+    jcfg = dataclasses.replace(jconfigs.reduced(jconfigs.get(NAME)),
+                               grad_accum=2)
+    tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get(NAME)),
+                               grad_accum=2)
+    jstate = jsteps.init_train_state(jcfg, jax.random.PRNGKey(0))
+    tstate = convert.train_state_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jstate))
+    toks, vis = _inputs(jcfg, 32, seed=6, batch=4)
+    jvis, tvis = _bf16(vis)
+    pos = grid_positions(4, 32, GRID)
+    pos[:, 2:] += 7            # the two microbatches' streams differ too
+    jstate, jmet = jax.jit(lambda s, b: jsteps.train_step(jcfg, s, b))(
+        jstate, {"tokens": jnp.asarray(toks), "vision_embeds": jvis,
+                 "mrope_positions": jnp.asarray(pos)})
+    tstate, tmet = tsteps.train_step(
+        tcfg, tstate, {"tokens": torch.from_numpy(toks),
+                       "vision_embeds": tvis,
+                       "mrope_positions": torch.from_numpy(pos)})
+    assert rel_err(jmet["loss"], _np(tmet["loss"])) < LOSS_RTOL
+    assert rel_err(jmet["grad_norm"], _np(tmet["grad_norm"])) < GNORM_RTOL
+    names = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(jstate.opt.m)[0]]
+    for name, a, b in zip(names, jax.tree_util.tree_leaves(jstate.opt.m),
+                          tree_leaves(tstate.opt.m)):
+        assert float(b.abs().max()) > 0, name
+        assert rel_err(a, _np(b)) < GRAD_RTOL, (name, rel_err(a, _np(b)))
+
+
+def test_serve_cli_runs_reduced_vlm_on_cpu(capsys):
+    serve.main(["--arch", NAME, "--device", "cpu", "--batch", "2",
+                "--prompt-len", "12", "--gen-tokens", "5"])
+    out = capsys.readouterr().out
+    assert f"arch={NAME}-smoke" in out and "attn_impl=flash" in out
+    assert "first sequence:" in out
+
+
+def test_serve_run_feeds_the_vision_inputs_to_prefill_only(models,
+                                                           monkeypatch):
+    """``serve.run`` passes ``vision_embeds`` and the streams to prefill,
+    and decode passes neither, as the reference's ``decode_step``."""
+    _, tcfg, _, tparams = models
+    toks, vis = _inputs(tcfg, 12, seed=7)
+    _, tvis = _bf16(vis)
+    calls = []
+    real = tlm.forward
+
+    def forward(cfg, params, tokens, **kw):
+        calls.append({k: kw.get(k) is not None
+                      for k in ("vision_embeds", "mrope_positions")})
+        return real(cfg, params, tokens, **kw)
+
+    monkeypatch.setattr(tlm, "forward", forward)
+    serve.run(tcfg, tparams, toks, 3, device="cpu", vision_embeds=tvis,
+              mrope_positions=torch.from_numpy(grid_positions(B, 12, GRID)))
+    assert calls[0] == {"vision_embeds": True, "mrope_positions": True}
+    assert calls[1:] == [{"vision_embeds": False,
+                          "mrope_positions": False}] * 2
