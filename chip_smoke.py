@@ -19,9 +19,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      shapes (head_dim 256), at granite-moe's (head_dim 64) and
      qwen2-moe's (head_dim 128, one query head a KV head) prefill shapes
      and at qwen2-vl's (a GQA group of 7) and jamba's, with the library's
-     backend; RMSNorm also timed at widths 1024 (granite-moe), 3584
+     backend, then whisper's encoder (non-causal over 1,500 frames) and
+     decoder prefill; RMSNorm also timed at widths 1024 (granite-moe), 3584
      (qwen2-vl), 4096 (jamba) and 8192 in fp32 (jamba's gated norm), each
-     at its prefill and decode rows; SSD also at jamba's prefill shape
+     at its prefill and decode rows, and at whisper's encoder and decoder
+     prefill rows (width 1024); SSD also at jamba's prefill shape
      (128 heads, d_state 16); for RMSNorm also the
      wrapper's host µs per call beside the library call's; for the RMSNorm
      backward the device kernels a call runs (one), and the library's
@@ -72,6 +74,16 @@ Phases (any failure exits non-zero; none is caught and passed over):
      runs bitwise equal, the logits on the served picks against the plain
      cached path (rmsnorm_ref, plain attention, the plain SSD scan), the
      routing's agreement and dropped shares, the drop-free run;
+  4g. whisper-medium (the audio family) at full width and depth (24
+     encoder and 24 decoder layers): 1,500 seeded random frames a row (the
+     reference stubs the conv frontend) and a 128-token prompt; flash
+     non-causal over every frame in each encoder layer and causal in each
+     decoder layer of prefill, all on the tensor-core kernel, exact
+     counts; the encoder states and the logits against the plain no-cache
+     forward with the noise floor beside; the frames + 1 must move the
+     served prefill beyond that floor; two served runs bitwise equal; one
+     profiled prefill and decode step, and the share of the decode step's
+     device time that the cross-attention K/V projections take;
   5. one Helix session on the card (``repro_torch.core``): a workflow
      params → prompts → prefill → decode serving internlm2-1.8b at full
      width and depth, run under ``Policy.ALWAYS`` (cold, a ``gen_tokens``
@@ -201,6 +213,16 @@ QWEN2_VL_PREFILL = (BATCH, PROMPT, PROMPT + GEN, 28, 4, 128, True, 0, 0)
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-v0.1-52b", 8
 JAMBA_PREFILL = (BATCH, PROMPT, PROMPT + GEN, 32, 8, 128, True, 0, 0)
 JAMBA_SSD = (BATCH, PROMPT, 128, 64, 16, 128)
+# phase 4g: whisper-medium at full width and depth, 30 s of audio (its
+# cross_len of 1,500 frames, seeded random frame embeddings: the reference
+# stubs the conv frontend) and a 128-token decoder prompt (whisper takes up
+# to 224 in a 448-token context); its flash calls in prefill: the encoder
+# non-causal over every frame (no tile divides 1,500), then the decoder's
+# causal self-attention over its cache
+AUDIO_ARCH, AUDIO_FRAMES, AUDIO_PROMPT = "whisper-medium", 1500, 128
+WHISPER_ENCODER = (BATCH, AUDIO_FRAMES, AUDIO_FRAMES, 16, 16, 64, False, 0, 0)
+WHISPER_DEC_PREFILL = (BATCH, AUDIO_PROMPT, AUDIO_PROMPT + GEN, 16, 16, 64,
+                       True, 0, 0)
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 RMSNORM_TOL = 2e-2
 # at qwen2-vl's and jamba's widths outputs reach |y| >= 4, where one bf16
@@ -209,6 +231,9 @@ RMSNORM_TOL = 2e-2
 # widths are held, as the card tests hold every layout case, at half a
 # bf16 ulp (2^-8 relative) of the fp32 result, 1e-5 for fp32
 ULP_WIDTHS = (3584, 4096, 8192)
+# and so are whisper's rows at width 1024: the encoder's 6,000 x 1024
+# outputs are enough for some to reach |y| >= 4 as well
+ULP_SHAPES = ((BATCH * AUDIO_FRAMES, 1024), (BATCH * AUDIO_PROMPT, 1024))
 # The SSD kernels compute in fp32 (the bf16 tensor-core kernel through
 # products split into bf16 halves, ~2^-18 of each term); the reference's
 # own tolerance (tests/test_kernels.py), relative to max |y| and to
@@ -336,10 +361,12 @@ def check_rmsnorm(dev, timer, peaks):
     # gemma3 (D 2560 over its longer prompt: blocks of 160 and 320 threads),
     # granite-moe (D 1024; qwen2-moe's D 2048 is internlm2's), qwen2-vl
     # (D 3584), jamba's norms (D 4096) and its gated norm (D 8192, fp32:
-    # the SSD output times the gate)
+    # the SSD output times the gate), whisper's encoder and decoder prefill
+    # (D 1024; its decode rows are granite-moe's)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8),
               (BATCH * PROMPT, 2048), (BATCH, 1, 2048),
               (BATCH * PROMPT, 1024), (BATCH, 1, 1024),
+              (BATCH * AUDIO_FRAMES, 1024), (BATCH * AUDIO_PROMPT, 1024),
               (BATCH * PROMPT, 768), (BATCH, 1, 768),
               (BATCH * PROMPT, 1536), (BATCH, 1, 1536),
               (BATCH * WINDOWED_PROMPT, 2560), (BATCH, 1, 2560),
@@ -358,7 +385,7 @@ def check_rmsnorm(dev, timer, peaks):
             err = max_err(y, ref.rmsnorm_ref(x, w))
             torch.cuda.synchronize()
             print(f"rmsnorm {shape} {dtype}: max_abs_err {err:.3g}")
-            if shape[-1] in ULP_WIDTHS:
+            if shape[-1] in ULP_WIDTHS or shape in ULP_SHAPES:
                 exp = ref.rmsnorm_ref(x.float(), w)
                 rtol = 2.0 ** -8 + 1e-5 if dtype == torch.bfloat16 else 1e-5
                 require(bool(((y.float() - exp).abs()
@@ -392,6 +419,8 @@ def check_rmsnorm(dev, timer, peaks):
                      (8192, "d8192_fp32")):
         out[f"{label}_prefill"] = rows[(BATCH * PROMPT, d)][3]
         out[f"{label}_decode"] = rows[(BATCH, 1, d)][3]
+    out["d1024_whisper_encoder"] = rows[(BATCH * AUDIO_FRAMES, 1024)][3]
+    out["d1024_whisper_decoder_prefill"] = rows[(BATCH * AUDIO_PROMPT, 1024)][3]
     # the wrapper's own host cost at the decode shape, beside the library's
     from repro_torch.launch.rmsnorm_layouts import host_us
     x, w, _, _ = rows[(BATCH, 1, 2048)]
@@ -553,6 +582,11 @@ def check_flash(dev, timer, peaks):
         (2, 65, 129, 7, 1, 128, True, 0, 64),
         QWEN2_VL_PREFILL,
         JAMBA_PREFILL,
+        # whisper: non-causal ragged past 23 kv tiles of 64 (1,500 = 23 x 64
+        # + 28), its encoder and its decoder prefill
+        (1, AUDIO_FRAMES, AUDIO_FRAMES, 2, 2, 64, False, 0, 0),
+        WHISPER_ENCODER,
+        WHISPER_DEC_PREFILL,
         (BATCH, PROMPT, PROMPT + GEN, 16, 8, 128, True, 0, 0),  # prefill
     ]
     for i, (b, sq, sk, h, kvh, d, causal, window, qoff) in enumerate(cases):
@@ -586,16 +620,20 @@ def check_flash(dev, timer, peaks):
                                          QWEN2_VL_PREFILL, "qwen2-vl prefill")
     out["jamba_prefill"] = time_flash(dev, timer, peaks, g, JAMBA_PREFILL,
                                       "jamba prefill")
+    out["whisper_encoder"] = time_flash(dev, timer, peaks, g, WHISPER_ENCODER,
+                                        "whisper encoder")
+    out["whisper_decoder_prefill"] = time_flash(
+        dev, timer, peaks, g, WHISPER_DEC_PREFILL, "whisper decoder prefill")
     return out
 
 
 def time_flash(dev, timer, peaks, g, case, label):
     """One prefill shape in bf16: the kernel's, the plain version's and the
     library's cold-L2 ms beside the bound. The library call is
-    ``F.scaled_dot_product_attention``: ``is_causal`` for a global layer
-    (its causal mask is aligned top-left, as q_offset 0 is), an explicit
-    boolean mask for a windowed one; the backend it picks is printed from
-    its kernels' names."""
+    ``F.scaled_dot_product_attention``: ``is_causal`` for a causal global
+    layer (its causal mask is aligned top-left, as q_offset 0 is), an
+    explicit boolean mask for a windowed one, no mask for a non-causal
+    one; the backend it picks is printed from its kernels' names."""
     from repro_torch.kernels.flash_attention import ops, ref
     b, sq, sk, h, kvh, d, causal, window, qoff = case
     q = torch.randn(b, sq, h, d, generator=g, device=dev).to(torch.bfloat16)
@@ -606,7 +644,8 @@ def time_flash(dev, timer, peaks, g, case, label):
     err = max_err(ops.flash_attention(q, k, v, off, **kw),
                   ref.attention_ref(q, k, v, off, **kw))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    require(causal and qoff == 0, ("the library call assumes", case))
+    require(qoff == 0 and (causal or not window),
+            ("the library call assumes", case))
     if window:
         i = torch.arange(sq, device=dev)[:, None]
         j = torch.arange(sk, device=dev)[None, :]
@@ -615,11 +654,12 @@ def time_flash(dev, timer, peaks, g, case, label):
             qt, kt, vt, attn_mask=mask, enable_gqa=True)
     else:
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=causal, enable_gqa=True)
     lib_err = max_err(lib().transpose(1, 2), ref.attention_ref(q, k, v, off, **kw))
     lib_kernels = device_kernels(lib)[0]
     # the work this data needs: each query row against its unmasked keys
-    pairs = b * h * sum(min(i + 1, sk, window or sk) for i in range(sq))
+    pairs = b * h * sum(min(i + 1 if causal else sk, sk, window or sk)
+                        for i in range(sq))
     flops = 4 * d * pairs                   # q·k and p·v, 2 flops per MAC
     nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + off.numel() * 4
     t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
@@ -632,8 +672,9 @@ def time_flash(dev, timer, peaks, g, case, label):
            "max_abs_err": err}
     require(ops.flash_attention.launches_tc > before_tc,
             "the bf16 flash call did not run the tensor-core kernel")
-    print(f"flash {label} {tuple(q.shape)} x {tuple(k.shape)} bf16 causal, "
-          f"window {window}: " + json.dumps(out)
+    print(f"flash {label} {tuple(q.shape)} x {tuple(k.shape)} bf16 "
+          f"{'causal' if causal else 'non-causal'}, window {window}: "
+          + json.dumps(out)
           + f" (library vs plain max_abs_err {lib_err:.3g}; the library's "
           f"kernels: {[n[:80] for n, _ in lib_kernels.most_common(3)]})")
     print(f"flash bf16 at the {label} shape: {flops / out['ms'] / 1e9:.1f} "
@@ -834,11 +875,12 @@ def launch_counters():
             "ssd_tc": (ssd_ops.ssd, "launches_tc")}
 
 
-def serve_main(dev, cfg, expect, prompt=PROMPT, vision=None):
+def serve_main(dev, cfg, expect, prompt=PROMPT, inputs=None):
     """Serve ``cfg`` at full width through ``serve.run`` (BATCH prompts of
-    ``prompt`` tokens, GEN generated; the vlm family's prefill inputs
-    ``vision``): a warm-up, then the main path with every launch count set
-    to 0 just before it and read just after. Requires the counts
+    ``prompt`` tokens, GEN generated; the prefill inputs ``inputs``: the
+    vlm family's vision embeddings and M-RoPE streams, or the audio
+    family's frames): a warm-up, then the main path with every launch
+    count set to 0 just before it and read just after. Requires the counts
     ``expect``, tokens in the vocabulary and finite logits. Returns the
     result, the launch counts, the parameters and the prompts."""
     from repro_torch.launch import serve
@@ -853,16 +895,18 @@ def serve_main(dev, cfg, expect, prompt=PROMPT, vision=None):
     torch.cuda.empty_cache()
     n_params = sum(t.numel() for t in _leaves(params))
     prompts = synth_prompts(cfg, prompt=prompt)
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+    depth = (cfg.num_layers if cfg.encdec is None else
+             f"{cfg.encdec.enc_layers} + {cfg.encdec.dec_layers}")
+    print(f"{cfg.name}: {depth} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params, init {init_s:.1f} s (peak "
           f"{init_gb:.2f} GB)")
 
-    vision = vision or {}
-    serve.run(cfg, params, prompts, 2, **vision)  # warm-up: cuBLAS, libraries
+    inputs = inputs or {}
+    serve.run(cfg, params, prompts, 2, **inputs)  # warm-up: cuBLAS, libraries
     torch.cuda.reset_peak_memory_stats(dev)
     counters = launch_counters()
     _reset(counters)
-    res = serve.run(cfg, params, prompts, GEN, **vision)   # the main path
+    res = serve.run(cfg, params, prompts, GEN, **inputs)   # the main path
     launches = _read(counters)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     tok_s = BATCH * (GEN - 1) / res.decode_s
@@ -978,15 +1022,15 @@ def cache_bytes(cfg, max_len) -> int:
                if isinstance(t, torch.Tensor))
 
 
-def profile_serving(dev, cfg, params, prompts, max_len, vision=None):
+def profile_serving(dev, cfg, params, prompts, max_len, inputs=None):
     """The card's busy share (device time over wall) of one profiled
-    prefill (with the vlm family's inputs ``vision``) and one decode step,
+    prefill (with the prefill inputs ``inputs``) and one decode step,
     with their launches and top kernels."""
     from repro_torch.launch.profile_serve import _kernel_times
     from repro_torch.train import steps
     from torch.profiler import ProfilerActivity, profile
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
-                                       device=dev), **(vision or {})}
+                                       device=dev), **(inputs or {})}
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with torch.inference_mode():
         logits, cache = steps.prefill_step(cfg, params, batch,
@@ -1279,7 +1323,7 @@ def serve_vlm(dev):
     res, launches, params, prompts = serve_main(dev, cfg, {
         "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-        "ssd_tc": 0}, vision=vision)
+        "ssd_tc": 0}, inputs=vision)
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
     seq_streams = grid_positions(BATCH, PROMPT, VLM_GRID, dev, GEN - 1)
@@ -1348,6 +1392,123 @@ def serve_hybrid(dev):
     torch.cuda.empty_cache()
     print(f"serve {cfg.name}: phase 4f {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ------------------------------------------------------------------ phase 4g
+def serve_audio(dev):
+    """Phase 4g: whisper-medium at full width and depth (24 encoder and 24
+    decoder layers), AUDIO_FRAMES seeded random frames a row and a prompt
+    of AUDIO_PROMPT tokens: flash in each encoder layer (non-causal over
+    every frame) and in each decoder layer of prefill, every one on the
+    tensor-core kernel; RMSNorm twice an encoder layer and ``enc_norm``,
+    then three times a decoder layer and the final norm in every forward.
+    Cross-attention and decode attend in plain torch, as in the reference.
+    The encoder states and the prefill and last decode logits against the
+    plain no-cache forward, with the noise floor between two plain paths;
+    the served prefill with the frames + 1 must move the logits beyond
+    that floor; a second served run must give the same bits; a profiled
+    prefill and decode step, and the cross-attention K/V projections'
+    share of the decode step's device time. Returns the main path's
+    launch counts."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(AUDIO_ARCH), attn_impl="flash")
+    ed = cfg.encdec
+    require(ed.cross_len == AUDIO_FRAMES, (ed.cross_len, AUDIO_FRAMES))
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    frames = torch.randn(BATCH, AUDIO_FRAMES, cfg.d_model, generator=g,
+                         device=dev).bfloat16()
+    n_attn = ed.enc_layers + ed.dec_layers
+    res, launches, params, prompts = serve_main(dev, cfg, {
+        "rmsnorm": 2 * ed.enc_layers + 1 + (3 * ed.dec_layers + 1) * GEN,
+        "rmsnorm_bwd": 0, "flash_attention": n_attn,
+        "flash_attention_tc": n_attn, "ssd": 0, "ssd_tc": 0},
+        prompt=AUDIO_PROMPT, inputs={"frames": frames})
+    again = serve.run(cfg, params, prompts, GEN, frames=frames)
+    tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
+    seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
+    with torch.inference_mode():
+        served_enc = steps.prefill_step(
+            cfg, params, {"tokens": tokens, "frames": frames},
+            max_len=AUDIO_PROMPT + GEN)[1]["enc_out"]
+        moved = rel_err(res.prefill_logits, serve.run(
+            cfg, params, prompts, 1, frames=frames + 1).prefill_logits)
+        plain = {}
+        with plain_kernels():
+            for impl in ("chunked", "reference"):
+                pcfg = dataclasses.replace(cfg, attn_impl=impl)
+                enc = encdec.encode(pcfg, params, frames)
+                logits = encdec.decode(pcfg, params, seq, enc).logits
+                plain[impl] = (enc, logits[:, AUDIO_PROMPT - 1], logits[:, -1])
+    served = (served_enc, res.prefill_logits, res.last_logits)
+    names = ("enc_out", "prefill", "last_decode")
+    errs = {k: rel_err(p, o) for k, p, o in zip(names, plain["chunked"], served)}
+    floor = {k: rel_err(a, b) for k, a, b in
+             zip(names, plain["chunked"], plain["reference"])}
+    same = all(torch.equal(a, b) for a, b in (
+        (res.tokens, again.tokens), (res.prefill_logits, again.prefill_logits),
+        (res.last_logits, again.last_logits)))
+    print(f"serve {cfg.name} vs the plain no-cache forward (max |diff| / "
+          f"max |value|): {errs}; noise floor between two plain paths: "
+          f"{floor}; the served prefill moved by {moved:.4g} with the frames "
+          f"+ 1; two served runs bitwise equal: {same}; first sequence "
+          f"{res.tokens[0][:16].tolist()}")
+    require(all(e < LOGITS_REL_TOL for e in errs.values()), errs)
+    require(all(f < LOGITS_REL_TOL for f in floor.values()),
+            ("the noise floor passed the serving bound", floor))
+    require(moved > max(floor.values()),
+            ("the frames moved the logits no more than the noise floor",
+             moved, floor))
+    require(same, "two served runs differ")
+    profile_serving(dev, cfg, params, prompts, AUDIO_PROMPT + GEN,
+                    {"frames": frames})
+    cross_kv_share(dev, cfg, params, tokens, frames)
+    del params, frames, served_enc, plain
+    torch.cuda.empty_cache()
+    print(f"serve {cfg.name}: phase 4g {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def cross_kv_share(dev, cfg, params, tokens, frames):
+    """The share of one decode step's device time that goes to the
+    cross-attention K/V projections, which project the encoder states
+    again in every layer of every step (the reference's design): the
+    matrix products whose input has BATCH x AUDIO_FRAMES rows, from
+    ``torch.profiler`` with the ops' input shapes. Each decoder layer must
+    show two."""
+    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.train import steps
+    from torch.profiler import ProfilerActivity, profile
+    rows = BATCH * AUDIO_FRAMES
+    with torch.inference_mode():
+        logits, cache = steps.prefill_step(
+            cfg, params, {"tokens": tokens, "frames": frames},
+            max_len=AUDIO_PROMPT + GEN)
+        token = logits.argmax(-1).to(torch.int32)[:, None]
+        steps.decode_step(cfg, params, token, cache)      # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            steps.decode_step(cfg, params, token, cache)
+            torch.cuda.synchronize()
+    dev_us = sum(_kernel_times(prof)[0].values())
+    kv_us, kv_calls = 0.0, 0
+    for e in prof.key_averages(group_by_input_shape=True):
+        first = e.input_shapes[0] if e.input_shapes else []
+        if (e.key in ("aten::mm", "aten::bmm") and len(first) >= 2
+                and int(np.prod(first[:-1])) == rows):
+            kv_us += e.device_time_total
+            kv_calls += e.count
+    require(kv_calls == 2 * cfg.encdec.dec_layers,
+            ("cross K/V products found in the decode step", kv_calls))
+    flops = 2 * 2 * cfg.encdec.dec_layers * rows * cfg.d_model ** 2
+    print(f"serve {cfg.name} decode step: the cross K/V projections take "
+          f"{kv_us / 1e3:.3f} ms of {dev_us / 1e3:.3f} ms device time "
+          f"({kv_us / dev_us:.1%}) in {kv_calls} products, {flops / 1e12:.3f} "
+          f"TFLOP ({flops / kv_us / 1e6:.1f} TFLOP/s)")
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2601,6 +2762,7 @@ def main() -> int:
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
                WINDOWED_ARCH: serve_windowed(dev), **serve_moe(dev),
                VLM_ARCH: serve_vlm(dev), HYBRID_ARCH: serve_hybrid(dev),
+               AUDIO_ARCH: serve_audio(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "lm-workflow": lm_workflow_path(dev),

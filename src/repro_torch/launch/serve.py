@@ -15,9 +15,12 @@ expert and drops assignments, as the reference does), the vlm family
 M-RoPE streams; ``main`` builds them as the reference's launcher does, a
 zero 4-patch prefix and three equal streams, and decode passes neither),
 the ssm family (mamba2-130m, whose prefill goes through the SSD chunk
-kernel) and the hybrid family (jamba-v0.1-52b, whose Mamba-2 layers'
+kernel), the hybrid family (jamba-v0.1-52b, whose Mamba-2 layers'
 prefill goes through the SSD chunk kernel and whose MoE layers run
-``moe_block``).
+``moe_block``) and, through ``run`` only, the audio family
+(whisper-medium: the prefill batch carries the encoder's ``frames``, and
+flash runs non-causal over every frame in the encoder). ``main``, like
+the reference's launcher, refuses the audio family.
 
     python -m repro_torch.launch.serve --full          # on the card
     python -m repro_torch.launch.serve --arch mamba2-130m --full
@@ -63,17 +66,18 @@ def _sync(dev: torch.device) -> None:
 def run(cfg: ArchConfig, params: Any, prompts, gen_tokens: int, *,
         device: str | torch.device | None = None,
         vision_embeds: torch.Tensor | None = None,
-        mrope_positions: torch.Tensor | None = None) -> ServeResult:
+        mrope_positions: torch.Tensor | None = None,
+        frames: torch.Tensor | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
     (the first comes from the prefill logits). ``params`` must live on
     ``device`` (default ``cuda``). The vlm family's ``vision_embeds`` (B,
-    npatch, D) and ``mrope_positions`` (3, B, S) go into the prefill
-    batch only."""
+    npatch, D) and ``mrope_positions`` (3, B, S), and the audio family's
+    ``frames`` (B, S_enc, D), go into the prefill batch only."""
     dev = resolve(device)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
     batch = {"tokens": tokens}
     for key, t in (("vision_embeds", vision_embeds),
-                   ("mrope_positions", mrope_positions)):
+                   ("mrope_positions", mrope_positions), ("frames", frames)):
         if t is not None:
             batch[key] = t.to(dev)
     max_len = tokens.shape[1] + gen_tokens

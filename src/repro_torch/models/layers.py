@@ -12,7 +12,9 @@ FlashAttention wrapper, which is forward only: training runs the plain
 ``"chunked"`` attention, as the reference does. On CPU tensors both
 wrappers take their plain versions. ``ring_update`` and
 ``attn_block_ring`` serve the windowed family's local layers (gemma3);
-``cross_attn_block`` comes with the audio family (ROADMAP queue 1 item 8).
+``cross_attn_block`` is the audio family's cross-attention over the
+encoder output (whisper), always through the plain ``"reference"``
+attention, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from .params import P
 
 __all__ = ["GLOBAL_WINDOW", "rmsnorm_defs", "rmsnorm", "rope_freqs",
            "apply_rope", "attention_defs", "gqa_attention", "attn_block",
-           "ring_update", "attn_block_ring", "mlp_defs", "mlp_block"]
+           "ring_update", "attn_block_ring", "cross_attn_block", "mlp_defs",
+           "mlp_block"]
 
 
 # --------------------------------------------------------------------------- norm
@@ -318,6 +321,26 @@ def attn_block_ring(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                             window=window, impl=cfg.attn_impl)
         ring_update(kc, vc, kpc, k, v, cache_pos)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (kc, vc, kpc)
+
+
+def cross_attn_block(cfg, p: dict, x: torch.Tensor, enc: torch.Tensor
+                     ) -> torch.Tensor:
+    """Encoder-decoder cross-attention: queries from ``x`` (B, S, d), keys
+    and values projected from ``enc`` (B, S_enc, d) on every call (no
+    cache: ``enc`` is static). Every position is 0 and nothing is masked
+    (``causal=False``, no window), through the plain ``"reference"``
+    attention whatever ``cfg.attn_impl`` says. As in the reference, the
+    ``bq``/``bk``/``bv`` biases of a ``use_bias`` config are not added
+    here."""
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", enc, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc, p["wv"])
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    k_pos = torch.zeros((b, enc.shape[1]), dtype=torch.int32, device=x.device)
+    out = gqa_attention(q, k, v, q_pos, k_pos, causal=False, window=None,
+                        impl="reference")
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 # --------------------------------------------------------------------------- mlp

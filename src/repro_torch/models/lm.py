@@ -40,8 +40,8 @@ mode is on and there is no cache, so serving is unchanged. Training the
 ssm and hybrid families needs a backward of the SSD chunk kernel and
 raises in ``train/steps.py`` (ROADMAP queue 1 item 10).
 
-The audio family (enc-dec) raises ``NotImplementedError`` naming its
-ROADMAP item.
+The audio family is an encoder-decoder and lives in ``encdec.py``
+(``registry`` dispatches to it); ``lm.py`` refuses its configs.
 """
 from __future__ import annotations
 
@@ -61,11 +61,11 @@ class LMOut(NamedTuple):
     aux_loss: torch.Tensor
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1 item 8)")
+def _require_decoder_only(cfg: ArchConfig) -> None:
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name}: the audio family is an encoder-decoder; use "
+            "models.encdec (models.registry dispatches to it)")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +122,7 @@ def _group_defs(cfg: ArchConfig) -> list[dict]:
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     d, v = cfg.d_model, cfg.vocab_size
     defs: dict = {
         "embed": P((v, d), ("vocab", "embed")),
@@ -170,7 +170,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     family's K/V per group and SSM states per group and SSM layer: the
     reference's leaves, shapes, dtypes and fill values. ``pos`` (the next
     write offset) is a host int."""
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.family == "hybrid":
         ng, n_ssm = _n_groups(cfg), cfg.attn_every - 1
@@ -263,7 +263,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     the first ``npatch`` token embeddings; ``mrope_positions`` (3, B, S)
     are the rotary ids of the homogeneous attention stack (vlm).
     """
-    _require_ported(cfg)
+    _require_decoder_only(cfg)
     b, s = tokens.shape
     h = embed_lookup(cfg, params["embed"], tokens)
     if vision_embeds is not None:

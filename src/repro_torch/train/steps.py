@@ -7,16 +7,17 @@ clipping, the 1-indexed warmup-cosine schedule and AdamW (fp32 moments).
 Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
 its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
 dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
-The dense and vlm families train (the vlm batch adds ``vision_embeds`` and
-``mrope_positions``, split into microbatches as the reference splits
-them): the ssm and hybrid families need a backward of the SSD chunk
-kernel (ROADMAP queue 1 item 10), the MoE family serves but its aux loss
-is not in the train step yet (item 10), and the audio family raises as
-``lm.forward`` does (item 8). Attention trains through
-the plain paths: the FlashAttention kernel has no backward yet (queue 2).
+The dense, vlm and audio families train (the vlm batch adds
+``vision_embeds`` and ``mrope_positions``, the audio batch ``frames``,
+each split into microbatches as the reference splits them): the ssm and
+hybrid families need a backward of the SSD chunk kernel (ROADMAP queue 1
+item 10), and the MoE family serves but its aux loss is not in the train
+step yet (item 10). Attention trains through the plain paths: the
+FlashAttention kernel has no backward yet (queue 2).
 
-``prefill_step`` builds the KV cache from a full prompt in one forward;
-``decode_step`` advances one token against it.
+``prefill_step`` builds the KV cache from a full prompt in one forward
+(for the audio family, after encoding the frames, whose output the cache
+keeps); ``decode_step`` advances one token against it.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..core.tree import tree_flatten, tree_map, tree_unflatten
-from ..models import lm, registry
+from ..models import encdec, lm, registry
 from ..models.config import ArchConfig
 from ..optim import adamw, schedules
 
@@ -52,10 +53,6 @@ def _require_trainable(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the moe family serves but does not train yet: the "
             "MoE aux loss in the train step (ROADMAP queue 1 item 10)")
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            "(ROADMAP queue 1 item 8)")
     if cfg.attn_impl == "flash":
         raise NotImplementedError(
             "the FlashAttention kernel has no backward yet (ROADMAP queue 2): "
@@ -87,8 +84,8 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
 
 def loss_fn(cfg: ArchConfig, params: Any, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    """batch keys: tokens (B, S) [+ loss_mask, vision_embeds,
-    mrope_positions]. Next-token LM loss.
+    """batch keys: tokens (B, S) [+ loss_mask, frames, vision_embeds,
+    mrope_positions]. Next-token LM loss (teacher-forced for enc-dec).
     Returns (loss + 0.01·aux, {"loss", "aux_loss"})."""
     _require_trainable(cfg)
     tokens = batch["tokens"]
@@ -96,9 +93,12 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict
     if mask is None:
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
-    out = lm.forward(cfg, params, tokens,
-                     vision_embeds=batch.get("vision_embeds"),
-                     mrope_positions=batch.get("mrope_positions"))
+    if cfg.family == "audio":
+        out = encdec.forward(cfg, params, batch["frames"], tokens)
+    else:
+        out = lm.forward(cfg, params, tokens,
+                         vision_embeds=batch.get("vision_embeds"),
+                         mrope_positions=batch.get("mrope_positions"))
     logits = out.logits[:, :-1]
     targets = tokens[:, 1:]
     loss = _xent(logits, targets, mask[:, 1:], impl=cfg.xent_impl)
@@ -110,15 +110,19 @@ def value_and_grad(cfg: ArchConfig, params: Any, batch: dict
                    ) -> tuple[dict, Any]:
     """(metrics, grads) of ``loss_fn`` at ``params``: the twin of
     ``jax.value_and_grad(..., has_aux=True)``. Grads are in each param's
-    dtype; ``params`` are left as they are (the graph is built on detached
+    dtype; a leaf the loss does not reach gets zeros, as in JAX (the audio
+    family's cross-attention biases: ``layers.cross_attn_block`` adds none).
+    ``params`` are left as they are (the graph is built on detached
     aliases of them)."""
     flat, treedef = tree_flatten(params)
     leaves = [p.detach().requires_grad_() for p in flat]
     with torch.enable_grad():
         total, metrics = loss_fn(cfg, tree_unflatten(treedef, leaves), batch)
-        grads = torch.autograd.grad(total, leaves)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
     return ({k: v.detach() for k, v in metrics.items()},
-            tree_unflatten(treedef, list(grads)))
+            tree_unflatten(treedef, grads))
 
 
 # ---------------------------------------------------------------------------
@@ -172,13 +176,20 @@ def train_step(cfg: ArchConfig, state: TrainState, batch: dict, *,
 # ---------------------------------------------------------------------------
 def prefill_step(cfg: ArchConfig, params: Any, batch: dict, *,
                  max_len: int) -> tuple[torch.Tensor, Any]:
-    """Build the cache from a full prompt. Returns (last logits, cache)."""
+    """Build the cache from a full prompt (``batch``: tokens [+ frames,
+    vision_embeds, mrope_positions]). Returns (last logits, cache)."""
     tokens = batch["tokens"]
     b, _ = tokens.shape
-    cache = registry.init_cache(cfg, b, max_len, tokens.device)
-    out = lm.forward(cfg, params, tokens, cache=cache,
-                     vision_embeds=batch.get("vision_embeds"),
-                     mrope_positions=batch.get("mrope_positions"))
+    if cfg.family == "audio":
+        enc_out = encdec.encode(cfg, params, batch["frames"])
+        cache = encdec.init_cache(cfg, b, max_len, enc_len=enc_out.shape[1],
+                                  device=tokens.device)
+        out = encdec.decode(cfg, params, tokens, enc_out, cache=cache)
+    else:
+        cache = registry.init_cache(cfg, b, max_len, tokens.device)
+        out = lm.forward(cfg, params, tokens, cache=cache,
+                         vision_embeds=batch.get("vision_embeds"),
+                         mrope_positions=batch.get("mrope_positions"))
     return out.logits[:, -1], out.cache
 
 
@@ -186,5 +197,8 @@ def decode_step(cfg: ArchConfig, params: Any, token: torch.Tensor,
                 cache: Any) -> tuple[torch.Tensor, Any]:
     """One token against the cache (updated in place). token: (B, 1).
     Returns (logits, cache)."""
-    out = lm.forward(cfg, params, token, cache=cache)
+    if cfg.family == "audio":
+        out = encdec.decode(cfg, params, token, cache["enc_out"], cache=cache)
+    else:
+        out = lm.forward(cfg, params, token, cache=cache)
     return out.logits[:, 0], out.cache

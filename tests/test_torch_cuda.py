@@ -77,6 +77,9 @@ RMSNORM_LAYOUT_CASES = [
     # qwen2-vl-7b (D 3584), jamba's norms (D 4096) and its gated norm over
     # d_inner (D 8192, fp32 on the serving path)
     (4, 3584), (2048, 3584), (4, 4096), (2048, 4096), (4, 8192), (2048, 8192),
+    # whisper-medium (D 1024): its encoder's 4 x 1,500 frames and its
+    # decoder prefill's 4 x 128 tokens
+    (6000, 1024), (512, 1024),
     (3, 776), (2049, 776), (600, 12288), (300, 12296), (5, 40000), (4, 72),
 ]
 
@@ -307,6 +310,12 @@ FLASH_CUDA_CASES = FLASH_CASES + [
     (1, 127, 131, 14, 2, 128, True, 0, 4),
     (4, 512, 544, 28, 4, 128, True, 0, 0),
     (4, 512, 544, 32, 8, 128, True, 0, 0),
+    # whisper-medium: non-causal over 1,500 keys, ragged past 23 kv tiles
+    # (1,500 = 23 x 64 + 28; zero-filled keys past Sk must get no weight),
+    # then its encoder (non-causal, 1,500 frames) and decoder prefill
+    (1, 1500, 1500, 2, 2, 64, False, 0, 0),
+    (4, 1500, 1500, 16, 16, 64, False, 0, 0),
+    (4, 128, 160, 16, 16, 64, True, 0, 0),
 ]
 
 
@@ -628,6 +637,89 @@ def test_vlm_forward_on_the_card_matches_the_cpu(cuda):
     for step, (a, b) in enumerate(zip(run("cpu"), run("cuda"))):
         err = float((a - b).abs().max() / a.abs().max())
         assert err < 3e-2, (step, err)
+
+
+def _audio_model():
+    """The reduced whisper (2 + 2 layers, d 128) with random weights on the
+    CPU, seeded frames (2 x 16, its ``cross_len``) and tokens."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import registry
+    cfg = dataclasses.replace(configs.reduced(configs.get("whisper-medium")),
+                              attn_impl="flash")
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 22), generator=g,
+                         dtype=torch.int32)
+    frames = torch.randn(2, cfg.encdec.cross_len, cfg.d_model,
+                         generator=g).bfloat16()
+    return cfg, params, toks, frames
+
+
+@pytest.mark.cuda
+def test_audio_forward_on_the_card_matches_the_cpu(cuda):
+    """The reduced whisper served on the card (flash in the encoder, non-
+    causal, and in decoder prefill; RMSNorm everywhere) against the same
+    weights and inputs on the CPU: prefill of 16 tokens and 6
+    teacher-forced decode steps, each step's logits within 3e-2 of the
+    CPU's max |logit|, and the encoder states the cache carries."""
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import steps
+    cfg, params, toks, frames = _audio_model()
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev), params)
+        before = tfa_ops.flash_attention.launches_tc
+        with torch.inference_mode():
+            logits, cache = steps.prefill_step(
+                cfg, p, {"tokens": toks[:, :16].to(dev),
+                         "frames": frames.to(dev)}, max_len=22)
+            got = [logits.float().cpu()]
+            for i in range(16, 22):
+                logits, cache = steps.decode_step(
+                    cfg, p, toks[:, i:i + 1].to(dev), cache)
+                got.append(logits.float().cpu())
+        launched = tfa_ops.flash_attention.launches_tc - before
+        n = cfg.encdec.enc_layers + cfg.encdec.dec_layers
+        assert launched == (n if dev == "cuda" else 0)
+        return got, cache["enc_out"].float().cpu()
+
+    (cpu, cpu_enc), (card, card_enc) = run("cpu"), run("cuda")
+    assert float((cpu_enc - card_enc).abs().max() / cpu_enc.abs().max()) < 3e-2
+    for step, (a, b) in enumerate(zip(cpu, card)):
+        err = float((a - b).abs().max() / a.abs().max())
+        assert err < 3e-2, (step, err)
+
+
+@pytest.mark.cuda
+def test_audio_train_step_on_the_card_matches_the_cpu(cuda):
+    """One ``train_step`` of the reduced whisper (plain chunked attention,
+    RMSNormFn's kernels) on the card against the CPU: loss at 1e-2 and
+    grad norm at 2e-2 relative; the norms' counts are the remat
+    arithmetic (each encoder layer's two norms and each decoder layer's
+    three run twice, ``enc_norm`` and the final norm once)."""
+    import dataclasses
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    cfg, params, toks, frames = _audio_model()
+    cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    le, ld = cfg.encdec.enc_layers, cfg.encdec.dec_layers
+    batch = {"tokens": toks, "frames": frames}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        state = steps.TrainState(params=p, opt=adamw.init(p))
+        trn_ops.rmsnorm.launches = trn_ops.rmsnorm_bwd.launches = 0
+        _, metrics = steps.train_step(
+            cfg, state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = {k: float(v) for k, v in metrics.items()}
+        if dev == "cuda":
+            assert (trn_ops.rmsnorm.launches, trn_ops.rmsnorm_bwd.launches) == (
+                4 * le + 6 * ld + 2, 2 * le + 3 * ld + 2)
+    assert abs(out["cuda"]["loss"] - out["cpu"]["loss"]) < 1e-2 * out["cpu"]["loss"]
+    assert abs(out["cuda"]["grad_norm"] - out["cpu"]["grad_norm"]) < \
+        2e-2 * out["cpu"]["grad_norm"]
 
 
 SSD_CUDA_CASES = [

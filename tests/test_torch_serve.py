@@ -158,7 +158,8 @@ FLEET_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
 
 MODEL_MODULES = ("repro_torch.models.lm", "repro_torch.models.moe",
                  "repro_torch.models.layers", "repro_torch.models.ssd",
-                 "repro_torch.models.registry", "repro_torch.launch.serve")
+                 "repro_torch.models.encdec", "repro_torch.models.registry",
+                 "repro_torch.launch.serve")
 
 
 def test_port_imports_no_jax_ml_dtypes_or_reference():
@@ -168,8 +169,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
     ``chip_smoke`` (without running it), then check that no JAX,
     ml_dtypes or reference module was loaded. The serving and fleet
     layer, the sweep and search drivers and their bench are named too, and
-    the model modules (the MoE block, M-RoPE and the hybrid stack among
-    them) and the serving entry point."""
+    the model modules (the MoE block, M-RoPE, the hybrid stack and the
+    encoder-decoder among them) and the serving entry point."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
