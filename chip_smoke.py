@@ -148,7 +148,24 @@ Phases (any failure exits non-zero; none is caught and passed over):
      0 wasted recomputes and 0 B ledger drift. Then
      ``launch.bench_fleet``'s six benches at ``FLEET_BENCH_SCALE``, their
      rows after the card's name and power limit;
-  10. print one ``{"kernels": [...]}`` line, then the result line
+  10. the engine benches and the examples: ``python -m
+     repro_torch.launch.bench_engine`` in a subprocess on the card, BLAS
+     pinned to one thread before numpy loads (OEP µs at 50/200/1000 nodes;
+     the sequential against the pipelined engine on census and the
+     12-tower MNIST, census outputs equal across the engines; the 8-wide
+     diamond of 150 ms waits at >= 3x; each census learner's C(n) under
+     both engines, and the card's busy share of one cold pipelined census
+     iteration: the first card measurement of what one CUDA stream for
+     every executor worker costs), then the eight examples of
+     ``repro_torch.examples`` on the card at the reference's defaults
+     (``serve_lm`` also at mamba2-130m; ``train_lm --small --steps 50``,
+     then ``--resume`` after its last checkpoint is removed, bitwise the
+     uninterrupted run), each with its exact launch counts (flash and
+     RMSNorm under ``serve_lm``, SSD at mamba2, the RMSNorm forward and
+     backward under ``train_lm``, none elsewhere) and its reference's bar
+     (the PPR edit reruns only the reducer, no signature computed twice,
+     0 B of ledger drift);
+  11. print one ``{"kernels": [...]}`` line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX and nothing of the JAX package ``src/repro``.
@@ -2690,6 +2707,199 @@ def fleet_path(dev, smi):
     return launches
 
 
+# ------------------------------------------------------------------ phase 10
+ENGINE_OVERLAP_MIN = 3.0       # the 8-wide diamond's speedup bar
+EXAMPLE_SERVE_GEN = 32         # launch.serve's default --gen-tokens
+EXAMPLE_TRAIN_STEPS = 50       # train_lm --small --steps 50, segments of 25
+
+
+def engine_benches(root, smi):
+    """``python -m repro_torch.launch.bench_engine`` in a subprocess on
+    the card, BLAS pinned to one thread before numpy loads (this process
+    has numpy loaded long since): OEP µs, both speedups, census outputs
+    equal across the engines, the diamond at >= 3x, each census learner's
+    C(n) under the sequential and the pipelined engine, and the card's
+    busy share of one cold pipelined census iteration. Its temporary
+    workdirs go under ``root``."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), TMPDIR=root,
+               **{v: "1" for v in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS",
+                                   "MKL_NUM_THREADS")})
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.bench_engine"], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    print(f"bench_engine on {smi} ({time.perf_counter() - t0:.1f} s, "
+          f"rc {proc.returncode}):")
+    for line in lines[:-1]:
+        print(f"  {line}")
+    require(proc.returncode == 0, ("bench_engine failed", proc.stderr[-4000:]))
+    out = json.loads(lines[-1])
+    threads = out["threads"]
+    require(all(threads[v] == "1" for v in ("OPENBLAS_NUM_THREADS",
+                                            "OMP_NUM_THREADS",
+                                            "MKL_NUM_THREADS"))
+            and threads["torch_threads"] == 1 and out["device"] == "cuda",
+            ("bench_engine's threads or device", threads, out["device"]))
+    speed = out["parallel_speedup"]
+    census, overlap = speed["census"], out["engine_overlap"]
+    print("engine benches: OEP µs a solve " + json.dumps(
+        {n: round(us, 1) for n, us in out["optimizer_overhead"].items()})
+        + f"; census speedup {census['speedup']:.3f}x, mnist "
+        f"{speed['mnist']['speedup']:.3f}x at {census['workers']} workers; "
+        f"overlap {overlap['speedup']:.3f}x")
+    require(census["outputs_equal"]
+            and census["outputs_seq"] == census["outputs_par"],
+            "census outputs differ between the engines")
+    require(overlap["speedup"] >= ENGINE_OVERLAP_MIN, ("overlap", overlap))
+    # speed item 11: a learner's C(n) alone (sequential) against beside the
+    # other workers on the one stream (pipelined), where both computed it
+    for i, (st_s, st_p, rt_s, rt_p) in enumerate(zip(
+            census["states_seq"], census["states_par"],
+            census["runtime_seq"], census["runtime_par"])):
+        both = [n for n in census["learners"]
+                if st_s.get(n) == st_p.get(n) == "COMPUTE"]
+        print(f"  census iteration {i}: C(n) seq / par s " + json.dumps(
+            {n: [round(rt_s[n], 6), round(rt_p[n], 6),
+                 round(rt_p[n] / max(rt_s[n], 1e-9), 3)] for n in both})
+            + f"; all nodes {sum(rt_s.values()):.4f} / "
+            f"{sum(rt_p.values()):.4f} s")
+    busy = out["census_busy"]
+    print(f"  census cold pipelined iteration, profiled: wall "
+          f"{busy['wall_s']:.4f} s, device {busy['device_s']:.4f} s (busy "
+          f"{busy['busy']:.2%}), {busy['launches']} device launches")
+    require(busy["device_s"] > 0, "no device time in the census iteration")
+    return out
+
+
+def example_expectations(label):
+    """The exact launch counts of the example run ``label``, from the
+    reduced configs."""
+    from repro_torch import configs
+    zero = {k: 0 for k in launch_counters()}
+    lm = configs.reduced(configs.get(ARCH))
+    ssm = configs.reduced(configs.get(SSM_ARCH))
+    train = configs.reduced(configs.get("helix100m"))
+    steps = EXAMPLE_TRAIN_STEPS + EXAMPLE_TRAIN_STEPS // 2   # run + resume
+    return {
+        # flash in each layer of prefill (bf16: the tensor-core kernel),
+        # 2 norms a layer and the final norm in every forward
+        "serve_lm": {**zero, "rmsnorm": (2 * lm.num_layers + 1)
+                     * EXAMPLE_SERVE_GEN, "flash_attention": lm.num_layers,
+                     "flash_attention_tc": lm.num_layers},
+        # SSD in each layer of prefill; chunk 8 takes the CUDA-core kernel
+        "serve_lm_mamba2": {**zero, "rmsnorm": (2 * ssm.num_layers + 1)
+                            * EXAMPLE_SERVE_GEN, "ssd": ssm.num_layers},
+        # remat "block": 4L + 1 forwards and 2L + 1 backwards a step
+        "train_lm": {**zero, "rmsnorm": (4 * train.num_layers + 1) * steps,
+                     "rmsnorm_bwd": (2 * train.num_layers + 1) * steps},
+    }.get(label, zero)
+
+
+def examples_path(dev, smi):
+    """Phase 10: the engine benches in a subprocess, then the eight
+    examples of ``repro_torch.examples`` on the card at the reference's
+    defaults (``train_lm`` at ``--small --steps 50``, then ``--resume``
+    after its last checkpoint is removed, bitwise the uninterrupted run),
+    each with the launch counts set to 0 just before it and read just
+    after. Their workdirs go under ``build/`` (``tempfile.tempdir``),
+    removed at the end. Returns the launch counts of the examples."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.core import Store
+    from repro_torch.examples import (genomics_iterate, incremental_census,
+                                      quickstart, serve_lm, session_server,
+                                      sweep_census, train_lm, tune_census)
+    counters = launch_counters()
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="examples-", dir=os.path.join(ROOT, "build"))
+    saved_tempdir = tempfile.tempdir
+    total = {k: 0 for k in counters}
+    try:
+        engine_benches(root, smi)
+        tempfile.tempdir = root
+        train_dir = os.path.join(root, "train_lm")
+        train_argv = ["--small", "--steps", str(EXAMPLE_TRAIN_STEPS),
+                      "--workdir", train_dir, "--log-every", "25"]
+        runs = [("quickstart", quickstart, []),
+                ("genomics_iterate", genomics_iterate, []),
+                ("incremental_census", incremental_census, []),
+                ("session_server", session_server, []),
+                ("sweep_census", sweep_census, []),
+                ("tune_census", tune_census, []),
+                ("serve_lm", serve_lm, []),
+                ("serve_lm_mamba2", serve_lm, ["--arch", SSM_ARCH]),
+                ("train_lm", train_lm, train_argv)]
+        outs = {}
+        for label, module, argv in runs:
+            torch.cuda.synchronize()
+            _reset(counters)
+            t0 = time.perf_counter()
+            outs[label] = module.main(argv)
+            if label == "train_lm":
+                run = f"{configs.reduced(configs.get('helix100m')).name}-s0"
+                store = Store(os.path.join(train_dir, "store"))
+                require(store.delete(ckpt._sig(run, EXAMPLE_TRAIN_STEPS)) > 0,
+                        "no checkpoint at the last step")
+                outs["train_lm_resumed"] = module.main(train_argv + ["--resume"])
+            torch.cuda.synchronize()
+            launches = _read(counters)
+            print(f"example {label}: {time.perf_counter() - t0:.1f} s on {dev}; "
+                  f"launches {launches}")
+            require(launches == example_expectations(label),
+                    (label, launches, example_expectations(label)))
+            for k in total:
+                total[k] += launches[k]
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(root, ignore_errors=True)
+
+    q = outs["quickstart"]
+    print("  quickstart: " + "; ".join(
+        f"{s['title']}: computed {s['n_computed']}, loaded {s['n_loaded']}, "
+        f"pruned {s['n_pruned']}, {s['total_seconds']:.3f} s, {s['output']}"
+        for s in q))
+    g = outs["genomics_iterate"]
+    print(f"  genomics: NEVER {g['NEVER']['total_s']:.3f} s, OPT "
+          f"{g['OPT']['total_s']:.3f} s, speedup {g['speedup']:.3f}x")
+    days = outs["incremental_census"]
+    print("  incremental_census: " + "; ".join(
+        f"{d['title']} {d['seconds']:.3f} s {d['dailyEval']}" for d in days))
+    require(all(c == (1, 6) for c in days[1]["chunks"].values()),
+            ("the append computed other than one chunk", days[1]["chunks"]))
+    srv = outs["session_server"]
+    print(f"  session_server: dispatch {srv['dispatch_log']}; " + "; ".join(
+        f"{u} {r['status']} {r['run_seconds']:.3f} s {r['outputs']}"
+        for u, r in sorted(srv["results"].items())))
+    require(all(r["status"] == "done" for r in srv["results"].values()), srv)
+    sw = outs["sweep_census"]
+    print(f"  sweep_census: isolated {sw['iso_s']:.3f} s, sweep "
+          f"{sw['sweep_s']:.3f} s ({sw['speedup']:.3f}x), computed twice "
+          f"{len(sw['recomputed'])}")
+    tu = outs["tune_census"]
+    print(f"  tune_census: {tu['search']['models']} models in "
+          f"{len(tu['search']['arms'])} arms, wasted {tu['search']['wasted']}; "
+          f"halving best {tu['halving']['best']}, ledger drift "
+          f"{tu['halving']['ledger_drift_b']:.0f} B")
+    for label in ("serve_lm", "serve_lm_mamba2"):
+        res = outs[label]
+        require(bool(torch.isfinite(res.last_logits).all())
+                and tuple(res.tokens.shape)[1] == EXAMPLE_SERVE_GEN, label)
+    full, resumed = outs["train_lm"], outs["train_lm_resumed"]
+    equal = same_bits(resumed.state, full.state)
+    print(f"  train_lm --small: loss {full.losses[0]:.4f} -> "
+          f"{full.losses[-1]:.4f} in {len(full.losses)} steps, "
+          f"{np.median(full.step_s) * 1e3:.2f} ms a step (median); resumed at "
+          f"step {resumed.start_step}, bitwise the uninterrupted run: {equal}")
+    require(resumed.start_step == EXAMPLE_TRAIN_STEPS // 2 and equal
+            and resumed.losses == full.losses[EXAMPLE_TRAIN_STEPS // 2:],
+            "train_lm --resume differs from the uninterrupted run")
+    print(f"examples: phase 10 {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {total}")
+    return total
+
+
 def link_rates(dev, nbytes=1 << 30, n=5):
     """GB/s of a pinned host buffer copied to the card and back (CUDA
     events around ``n`` copies each way, after one warm-up copy): the
@@ -2767,7 +2977,8 @@ def main() -> int:
                "train-internlm2": train_path(dev),
                "lm-workflow": lm_workflow_path(dev),
                "paper-workflows": paper_workflows_path(dev),
-               "fleet": fleet_path(dev, smi)}
+               "fleet": fleet_path(dev, smi),
+               "examples": examples_path(dev, smi)}
 
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",

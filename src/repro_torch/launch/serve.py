@@ -102,7 +102,7 @@ def run(cfg: ArchConfig, params: Any, prompts, gen_tokens: int, *,
                        prefill_s=t_prefill, decode_s=t_decode)
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> ServeResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--reduced", action="store_true", default=True)
@@ -147,6 +147,7 @@ def main(argv: list[str] | None = None) -> None:
     print(f"prefill {res.prefill_s*1e3:.1f} ms; decode {res.decode_s*1e3:.1f} ms "
           f"({tok_s:.1f} tok/s)")
     print("first sequence:", res.tokens[0][:16].tolist())
+    return res
 
 
 if __name__ == "__main__":

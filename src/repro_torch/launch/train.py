@@ -9,11 +9,12 @@ batcher (a pure function of (seed, step)) replays the exact data stream.
 A per-step watchdog flags stragglers via z-score on step time.
 
 The reference's flags, plus ``--device`` (default ``cuda``; asking for it
-without a card raises) and ``--full`` (the published config; the default
-is ``--reduced``, the same code path at smoke size). There is no mesh:
-``--production-mesh`` raises until the distributed substrate is ported.
+without a card raises) and ``--full`` (the published config, which is also
+the default, as in the reference; ``--reduced`` runs the same code path at
+smoke size). There is no mesh: ``--production-mesh`` raises until the
+distributed substrate is ported.
 
-    python -m repro_torch.launch.train --device cpu --steps 20   # reduced, CPU
+    python -m repro_torch.launch.train --device cpu --reduced --steps 20
     python -m repro_torch.launch.train --arch internlm2-1.8b --full --batch 4 --seq 512
 
 ``train`` is the library entry point: it runs steps ``[start, stop)`` of a
@@ -107,9 +108,9 @@ def train(cfg: ArchConfig, state: steps.TrainState, batcher: TokenBatcher,
 def main(argv: list[str] | None = None) -> TrainResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="helix100m")
-    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--full", dest="reduced", action="store_false",
-                    help="the published config instead of --reduced")
+                    help="the published config (the default)")
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--segment-steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)

@@ -156,6 +156,14 @@ FLEET_MODULES = tuple(f"repro_torch.serve.{m}" for m in (
                   "repro_torch.launch.bench_fleet")
 
 
+BENCH_MODULES = ("repro_torch.launch._blas", "repro_torch.launch.bench_engine",
+                 "repro_torch.launch.bench") + tuple(
+    f"repro_torch.examples.{m}" for m in (
+        "quickstart", "genomics_iterate", "incremental_census",
+        "session_server", "sweep_census", "tune_census", "serve_lm",
+        "train_lm")) + ("repro_torch.examples",)
+
+
 MODEL_MODULES = ("repro_torch.models.lm", "repro_torch.models.moe",
                  "repro_torch.models.layers", "repro_torch.models.ssd",
                  "repro_torch.models.encdec", "repro_torch.models.registry",
@@ -170,7 +178,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
     ml_dtypes or reference module was loaded. The serving and fleet
     layer, the sweep and search drivers and their bench are named too, and
     the model modules (the MoE block, M-RoPE, the hybrid stack and the
-    encoder-decoder among them) and the serving entry point."""
+    encoder-decoder among them) and the serving entry point, and the
+    engine benches, the by-name bench CLI and the eight examples."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -187,6 +196,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(flows) <= set(mods), sorted(set(flows) - set(mods))\n"
         f"fleet = {list(FLEET_MODULES)!r}\n"
         "assert set(fleet) <= set(mods), sorted(set(fleet) - set(mods))\n"
+        f"benches = {list(BENCH_MODULES)!r}\n"
+        "assert set(benches) <= set(mods), sorted(set(benches) - set(mods))\n"
         f"models = {list(MODEL_MODULES)!r}\n"
         "assert set(models) <= set(mods), sorted(set(models) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"

@@ -119,6 +119,32 @@ def test_trainer_refuses_to_run_without_a_card(tmp_path):
         train.main(ARGS + ["--production-mesh", "--workdir", str(tmp_path)])
 
 
+def _config_chosen(monkeypatch, argv):
+    """The config ``train.main(argv)`` would train, read where the state
+    would be made, without making it."""
+    seen = {}
+
+    def stop(cfg, generator, device):
+        seen["cfg"] = cfg
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tsteps, "init_train_state", stop)
+    with pytest.raises(KeyboardInterrupt):
+        train.main(argv)
+    return seen["cfg"]
+
+
+def test_default_is_the_published_config(monkeypatch, tmp_path):
+    """With neither ``--reduced`` nor ``--full`` the trainer takes
+    ``configs.get(arch)`` unchanged, as the reference's ``--reduced``
+    (``store_true``) does; ``--reduced`` takes the smoke config."""
+    for arch in ("helix100m", "internlm2-1.8b"):
+        base = ["--device", "cpu", "--arch", arch, "--workdir", str(tmp_path)]
+        assert _config_chosen(monkeypatch, base) == tconfigs.get(arch)
+        assert _config_chosen(monkeypatch, base + ["--reduced"]) == \
+            tconfigs.reduced(tconfigs.get(arch))
+
+
 def test_full_flag_selects_the_published_config(monkeypatch, tmp_path):
     """``--full`` trains the published config: checked up to the point
     where the state would be made, without making it."""
