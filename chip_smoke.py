@@ -26,8 +26,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
      prefill rows (width 1024); SSD also at jamba's prefill shape
      (128 heads, d_state 16); for RMSNorm also the
      wrapper's host µs per call beside the library call's; for the RMSNorm
-     backward the device kernels a call runs (one), and the library's
-     backward timed as a CUDA-graph replay (its device time);
+     backward the device kernels a call runs (one, read from a profiled
+     window that must also hold its marker kernel), and the library's
+     backward timed as a CUDA-graph replay (its device time); the SSD
+     backward (``ssd_chunk_bwd``) at every SSD case in fp32 and bf16,
+     two calls bitwise equal, its plain version also against autograd of
+     the forward's plain version, timed at mamba2-130m's train shape;
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
@@ -108,6 +112,12 @@ Phases (any failure exits non-zero; none is caught and passed over):
      peak memory and the card's busy share (one profiled step, its top
      kernels); then the resume check at reduced size: 4 steps with a
      segment at 2, a restart from step 2, bitwise the uninterrupted run;
+  6b. the same for mamba2-130m at full width and depth (24 layers,
+     d_model 768, chunk 128): the SSD chunk kernel (twice a layer a step
+     under remat, all tensor-core) and its backward kernel (once), the
+     RMSNorm kernels as in phase 6, exact counts; every leaf's gradient
+     held against the plain path with the sequential oracle, the floor
+     the reference model's chunked scan;
   7. the LM workflow in a Helix session (``launch.bench_tier`` on the card:
      cold, warm, then an ``LI`` edit of ``peak_lr``), each iteration's
      counts matching the states the planner chose (a reused ``train``
@@ -451,15 +461,14 @@ def check_rmsnorm(dev, timer, peaks):
 
 def device_kernels(fn):
     """({kernel name: device µs}, {kernel name: launches}) of one call of
-    ``fn`` (after a call that warms it up), from ``torch.profiler``."""
-    from repro_torch.launch.profile_serve import _kernel_times
-    from torch.profiler import ProfilerActivity, profile
+    ``fn`` (after a call that warms it up), from ``torch.profiler``, in a
+    window that must hold its marker kernel (``profile_serve.profiled``:
+    a window that recorded no CUDA activity is profiled again)."""
+    from repro_torch.launch.profile_serve import profiled
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return _kernel_times(prof)
+    times, calls, _ = profiled(fn)
+    return times, calls
 
 
 def check_rmsnorm_bwd(dev, timer, peaks):
@@ -701,25 +710,44 @@ def time_flash(dev, timer, peaks, g, case, label):
     return out
 
 
+def ssd_inputs(g, dev, b, s, h, p, n):
+    """x, dt, a, B, C as the model makes them: dt = softplus(N(0, 0.55²))
+    and a = -e (the init's a_log = 1), so a 128-long chunk decays to cs ~
+    -240 and exp(cs_i - cs_j) overflows fp32 for j > i."""
+    x = torch.randn(b, s, h, p, generator=g, device=dev)
+    dt = F.softplus(0.55 * torch.randn(b, s, h, generator=g, device=dev))
+    a = torch.full((h,), -2.718281828, device=dev)
+    bm, cm = (0.5 * torch.randn(b, s, n, generator=g, device=dev)
+              for _ in range(2))
+    return x, dt, a, bm, cm
+
+
+def ssd_cumsum(dt, a, chunk):
+    b, s, h = dt.shape
+    return torch.cumsum((dt * a).reshape(b, s // chunk, chunk, h),
+                        2).reshape(b, s, h)
+
+
+# mamba2-130m's SSD call in prefill and in training, (b, S, H, P, N, chunk)
+SSD_SERVING = (BATCH, PROMPT, 24, 64, 128, 128)
+SSD_CASES = [  # b, S, H, P, N, chunk
+    (2, 64, 3, 16, 32, 16), (1, 128, 4, 32, 16, 32),
+    (2, 48, 2, 16, 8, 16), (1, 96, 8, 8, 8, 32),     # tests/test_kernels.py
+    (2, 16, 16, 16, 16, 8),                          # reduced mamba2
+    (1, 256, 4, 64, 16, 128),                        # jamba's SSMCfg
+    SSD_SERVING,
+    JAMBA_SSD,                                       # jamba's prefill
+]
+
+
 def check_ssd(dev, timer, peaks):
     from repro_torch.kernels.ssd import ops, ref
     g = torch.Generator(device=dev).manual_seed(3)
 
     def inputs(b, s, h, p, n):
-        """As the model makes them: dt = softplus(N(0, 0.55²)) and a = -e
-        (the init's a_log = 1), so a 128-long chunk decays to cs ~ -240 and
-        exp(cs_i - cs_j) overflows fp32 for j > i."""
-        x = torch.randn(b, s, h, p, generator=g, device=dev)
-        dt = F.softplus(0.55 * torch.randn(b, s, h, generator=g, device=dev))
-        a = torch.full((h,), -2.718281828, device=dev)
-        bm, cm = (0.5 * torch.randn(b, s, n, generator=g, device=dev)
-                  for _ in range(2))
-        return x, dt, a, bm, cm
+        return ssd_inputs(g, dev, b, s, h, p, n)
 
-    def cumsum(dt, a, chunk):
-        b, s, h = dt.shape
-        return torch.cumsum((dt * a).reshape(b, s // chunk, chunk, h),
-                            2).reshape(b, s, h)
+    cumsum = ssd_cumsum
 
     def close(got, want):
         (y, h), (y_exp, h_exp) = got, want
@@ -728,16 +756,8 @@ def check_ssd(dev, timer, peaks):
               and eh <= SSD_TOL * max(float(h_exp.abs().max()), 1.0))
         return ok, ey, eh
 
-    serving = (BATCH, PROMPT, 24, 64, 128, 128)
-    cases = [  # b, S, H, P, N, chunk
-        (2, 64, 3, 16, 32, 16), (1, 128, 4, 32, 16, 32),
-        (2, 48, 2, 16, 8, 16), (1, 96, 8, 8, 8, 32),     # tests/test_kernels.py
-        (2, 16, 16, 16, 16, 8),                          # reduced mamba2
-        (1, 256, 4, 64, 16, 128),                        # jamba's SSMCfg
-        serving,
-        JAMBA_SSD,                                       # jamba's prefill
-    ]
-    for case in cases:
+    serving = SSD_SERVING
+    for case in SSD_CASES:
         b, s, h, p, n, chunk = case
         for dtype in (torch.float32, torch.bfloat16):
             x, dt, a, bm, cm = inputs(b, s, h, p, n)
@@ -802,6 +822,98 @@ def time_ssd(timer, peaks, inputs, cumsum, case, label):
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "max_abs_err": err}
     print(f"ssd_chunk {label} {case} bf16: " + json.dumps(out)
+          + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+          f"{out['bound_ms'] / out['ms']:.1%} of its bound, "
+          f"{out['ms'] / out['bound_ms']:.2f}x it)")
+    return out
+
+
+SSD_GRADS = ("dx", "ddt", "dcs", "dB", "dC")
+
+
+def check_ssd_bwd(dev, timer, peaks):
+    """The backward kernel (``ssd_chunk_bwd``) against its plain version
+    ``ssd_chunk_bwd_ref`` at every case of ``check_ssd``, fp32 and bf16,
+    each output held at SSD_TOL of its max |ref| (the forward's bound);
+    two calls bitwise equal; ``ssd_chunk_bwd_ref`` itself against autograd
+    of ``ssd_chunk_ref`` on the card (fp32), a check that shares none of
+    its derivation; then timed cold at mamba2-130m's train shape (its
+    prefill shape, bf16) beside the bound and the plain backward. No
+    single PyTorch call computes this function (``library_ms`` null)."""
+    from repro_torch.kernels.ssd import ops, ref
+    g = torch.Generator(device=dev).manual_seed(8)
+
+    def inputs(case, dtype):
+        b, s, h, p, n, chunk = case
+        x, dt, a, bm, cm = ssd_inputs(g, dev, b, s, h, p, n)
+        dy = torch.randn(b, s, h, p, generator=g, device=dev)
+        dst = torch.randn(b, s // chunk, h, n, p, generator=g, device=dev)
+        return (x.to(dtype), dt, ssd_cumsum(dt, a, chunk), bm.to(dtype),
+                cm.to(dtype), dy, dst)
+
+    def rel_errs(got, want):
+        return {k: max_err(o, w) / max(float(w.abs().max()), 1e-30)
+                for k, o, w in zip(SSD_GRADS, got, want)}
+
+    worst = {}
+    for case in SSD_CASES:
+        chunk = case[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            args = inputs(case, dtype)
+            before = ops.ssd.launches_bwd
+            got = ops.ssd_chunk_bwd(*args, chunk=chunk)
+            want = ref.ssd_chunk_bwd_ref(*args, chunk=chunk)
+            again = ops.ssd_chunk_bwd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            errs = rel_errs(got, want)
+            bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"ssd_chunk_bwd {case} {dtype}: max |err| / max |ref| "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                  + f"; two calls bitwise: {bitwise}")
+            require(ops.ssd.launches_bwd == before + 2,
+                    ("ssd_chunk_bwd launches", case, dtype))
+            require(all(bool(torch.isfinite(t).all()) for t in got),
+                    ("ssd_chunk_bwd not finite", case, dtype))
+            require(all(v <= SSD_TOL for v in errs.values()),
+                    ("ssd_chunk_bwd", case, dtype, errs))
+            require(bitwise, ("ssd_chunk_bwd differs between calls", case,
+                              dtype))
+            worst[(case, dtype)] = max(max_err(o, w)
+                                       for o, w in zip(got, want))
+        # the formula against autograd of the forward's plain version
+        x, dt, cs, bm, cm, dy, dst = inputs(case, torch.float32)
+        leaves = [t.detach().requires_grad_() for t in (x, dt, cs, bm, cm)]
+        with torch.enable_grad():
+            y, st = ref.ssd_chunk_ref(*leaves, chunk=chunk)
+            auto = torch.autograd.grad((y, st), leaves, (dy, dst))
+        errs = rel_errs(ref.ssd_chunk_bwd_ref(x, dt, cs, bm, cm, dy, dst,
+                                              chunk=chunk), auto)
+        print(f"ssd_chunk_bwd_ref {case} vs autograd of ssd_chunk_ref: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        require(all(bool(torch.isfinite(t).all()) for t in auto)
+                and all(v <= SSD_TOL for v in errs.values()),
+                ("ssd_chunk_bwd_ref vs autograd", case, errs))
+
+    b, s, h, p, n, chunk = SSD_SERVING
+    args = inputs(SSD_SERVING, torch.bfloat16)
+    x, dt, cs, bm, cm, dy, dst = args
+    nc = s // chunk
+    # least work: each head's dy xᵀ and wᵀ dy on the causal half, its
+    # B dst and (x ∘ dte) dstᵀ; C Bᵀ, dcb B and dcbᵀ C once a chunk
+    tri = chunk * (chunk + 1) // 2
+    flops = 2 * b * nc * (h * (2 * tri * p + 2 * chunk * n * p) + 3 * tri * n)
+    nbytes = (x.numel() * 2 + 2 * dt.numel() * 4 + 2 * bm.numel() * 2
+              + dy.numel() * 4 + dst.numel() * 4                  # read
+              + x.numel() * 4 + 2 * dt.numel() * 4 + 2 * bm.numel() * 4)
+    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[1] * 1e3
+    out = {"ms": timer(lambda: ops.ssd_chunk_bwd(*args, chunk=chunk)),
+           "plain_ms": timer(lambda: ref.ssd_chunk_bwd_ref(*args,
+                                                          chunk=chunk)),
+           "library_ms": None,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "max_abs_err": worst[(SSD_SERVING, torch.bfloat16)]}
+    print(f"ssd_chunk_bwd mamba2 train {SSD_SERVING} bf16: " + json.dumps(out)
           + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
           f"{out['bound_ms'] / out['ms']:.1%} of its bound, "
           f"{out['ms'] / out['bound_ms']:.2f}x it)")
@@ -878,9 +990,10 @@ def plain_ssm_last_logits(cfg, params, tokens, scan="chunked"):
 def launch_counters():
     """{count name: (wrapper, attribute)}; each attribute counts kernel
     launches since it was last set to 0 (``rmsnorm_bwd`` counts calls, each
-    of which launches its row kernel and its dw sum). ``flash_attention_tc`` and
-    ``ssd_tc`` count the launches that ran the bf16 tensor-core kernel of
-    flash and of the SSD chunk."""
+    one cooperative launch; ``ssd_bwd`` counts calls of ``ssd_chunk_bwd``,
+    each two launches). ``flash_attention_tc`` and ``ssd_tc`` count the
+    launches that ran the bf16 tensor-core kernel of flash and of the SSD
+    chunk."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -889,7 +1002,8 @@ def launch_counters():
             "flash_attention": (fa_ops.flash_attention, "launches"),
             "flash_attention_tc": (fa_ops.flash_attention, "launches_tc"),
             "ssd": (ssd_ops.ssd, "launches"),
-            "ssd_tc": (ssd_ops.ssd, "launches_tc")}
+            "ssd_tc": (ssd_ops.ssd, "launches_tc"),
+            "ssd_bwd": (ssd_ops.ssd, "launches_bwd")}
 
 
 def serve_main(dev, cfg, expect, prompt=PROMPT, inputs=None):
@@ -974,7 +1088,8 @@ def serve_full(dev):
     return serve_path(dev, cfg, plain_last_logits, "reference", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": cfg.num_layers,
-        "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0})[0]
+        "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0,
+        "ssd_bwd": 0})[0]
 
 
 def serve_ssm(dev):
@@ -988,7 +1103,7 @@ def serve_ssm(dev):
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers,
-        "ssd_tc": cfg.num_layers})[0]
+        "ssd_tc": cfg.num_layers, "ssd_bwd": 0})[0]
 
 
 def serve_windowed(dev):
@@ -1009,7 +1124,7 @@ def serve_windowed(dev):
         dev, cfg, plain_last_logits, "reference", {
             "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
             "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-            "ssd_tc": 0}, prompt=WINDOWED_PROMPT)
+            "ssd_tc": 0, "ssd_bwd": 0}, prompt=WINDOWED_PROMPT)
     windowed_profile(dev, cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
@@ -1043,12 +1158,12 @@ def profile_serving(dev, cfg, params, prompts, max_len, inputs=None):
     """The card's busy share (device time over wall) of one profiled
     prefill (with the prefill inputs ``inputs``) and one decode step,
     with their launches and top kernels."""
-    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.launch.profile_serve import profiled
     from repro_torch.train import steps
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int32,
                                        device=dev), **(inputs or {})}
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
     with torch.inference_mode():
         logits, cache = steps.prefill_step(cfg, params, batch,
                                            max_len=max_len)
@@ -1060,13 +1175,13 @@ def profile_serving(dev, cfg, params, prompts, max_len, inputs=None):
                     cfg, params, batch, max_len=max_len)),
                 ("decode step", lambda: steps.decode_step(
                     cfg, params, token, cache))):
-            torch.cuda.synchronize()
-            with profile(activities=acts) as prof:
+            def timed(fn=fn):
                 t0 = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            times, calls = _kernel_times(prof)
+                return (time.perf_counter() - t0) * 1e3
+
+            times, calls, wall_ms = profiled(timed, activities=acts)
             require(bool(times), "torch.profiler recorded no device time")
             dev_ms = sum(times.values()) / 1e3
             print(f"serve {cfg.name} {label} profiled: wall {wall_ms:.3f} ms, "
@@ -1200,7 +1315,7 @@ def serve_moe(dev):
         out[name] = moe_path(dev, cfg, {
             "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
             "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-            "ssd_tc": 0})
+            "ssd_tc": 0, "ssd_bwd": 0})
         torch.cuda.empty_cache()
     print(f"serve moe: phase 4d {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -1340,7 +1455,7 @@ def serve_vlm(dev):
     res, launches, params, prompts = serve_main(dev, cfg, {
         "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-        "ssd_tc": 0}, inputs=vision)
+        "ssd_tc": 0, "ssd_bwd": 0}, inputs=vision)
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
     seq_streams = grid_positions(BATCH, PROMPT, VLM_GRID, dev, GEN - 1)
@@ -1405,7 +1520,7 @@ def serve_hybrid(dev):
     launches = moe_path(dev, cfg, {
         "rmsnorm": (groups * (3 * n_ssm + 2) + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": groups, "flash_attention_tc": groups,
-        "ssd": groups * n_ssm, "ssd_tc": groups * n_ssm})
+        "ssd": groups * n_ssm, "ssd_tc": groups * n_ssm, "ssd_bwd": 0})
     torch.cuda.empty_cache()
     print(f"serve {cfg.name}: phase 4f {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -1442,7 +1557,7 @@ def serve_audio(dev):
     res, launches, params, prompts = serve_main(dev, cfg, {
         "rmsnorm": 2 * ed.enc_layers + 1 + (3 * ed.dec_layers + 1) * GEN,
         "rmsnorm_bwd": 0, "flash_attention": n_attn,
-        "flash_attention_tc": n_attn, "ssd": 0, "ssd_tc": 0},
+        "flash_attention_tc": n_attn, "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0},
         prompt=AUDIO_PROMPT, inputs={"frames": frames})
     again = serve.run(cfg, params, prompts, GEN, frames=frames)
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -1674,7 +1789,7 @@ def session_iteration(label, session, cfg, init, gen, dev, place, direct):
     expect = {"rmsnorm": (2 * cfg.num_layers + 1) * forwards, "rmsnorm_bwd": 0,
               "flash_attention": cfg.num_layers * prefill_runs,
               "flash_attention_tc": cfg.num_layers * prefill_runs,
-              "ssd": 0, "ssd_tc": 0}
+              "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0}
     loads = {t: {k: v[k] - loads0[t][k] for k in ("hits", "bytes", "seconds")}
              for t, v in store.load_stats.items()}
     writes = {k: store.write_stats[k] - writes0[k] for k in writes0}
@@ -1875,30 +1990,45 @@ def _read(counters):
             for name, (wrapper, attr) in counters.items()}
 
 
-NORM_LEAVES = ("final_norm", "blocks.ln1", "blocks.ln2")
-
-
 def _norm_grads(grads):
+    """internlm2's norm weights' gradients, by leaf name."""
     return {"final_norm": grads["final_norm"],
             "blocks.ln1": grads["blocks"]["ln1"],
             "blocks.ln2": grads["blocks"]["ln2"]}
 
 
-def train_path(dev):
-    """Phase 6: internlm2-1.8b at full width and depth through the
-    trainer's step loop (``launch.train.train``), kernels vs plain. Returns
-    the kernel run's launch counts."""
-    from repro_torch import configs
+def _named_grads(grads, prefix=""):
+    """Every leaf's gradient, by its path in the tree ("blocks.ssm.a_log")."""
+    if not isinstance(grads, dict):
+        return {prefix: grads}
+    out = {}
+    for k, v in grads.items():
+        out.update(_named_grads(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def train_compare(dev, cfg, expect, plain, floor, pick, label,
+                  plain_steps=TRAIN_STEPS):
+    """``cfg`` at full width through the trainer's step loop
+    (``launch.train.train``, TRAIN_STEPS steps of batch BATCH x PROMPT),
+    the main path with every launch count set to 0 just before it and read
+    just after, required equal to ``expect``; finite losses. Then the
+    first ``plain_steps`` steps and the first batch's gradients under
+    ``plain`` (a context manager that swaps every kernel for its plain
+    version) and under ``floor`` (another plain path that differs from
+    ``plain`` only in rounding), each (context, config): loss and grad
+    norm a step within LOSS_REL_TOL of the plain path's, and each leaf
+    ``pick`` names within GRAD_REL_TOL of its max |g|, the floor beside.
+    Then one step profiled for the card's busy share. Returns the launch
+    counts."""
     from repro_torch.data import synth
     from repro_torch.data.pipeline import TokenBatcher, batch_to
     from repro_torch.launch import train
-    from repro_torch.launch.profile_serve import _kernel_times
+    from repro_torch.launch.profile_serve import profiled
     from repro_torch.optim import adamw
     from repro_torch.train import steps
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    cfg = configs.get(ARCH)                  # attn_impl "chunked", remat "block"
-    L = cfg.num_layers
     t0 = time.perf_counter()
     params0 = steps.init_train_state(
         cfg, torch.Generator(device=dev).manual_seed(SEED), dev).params
@@ -1907,7 +2037,7 @@ def train_path(dev):
                              cfg.vocab_size)
     batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
     torch.cuda.synchronize()
-    print(f"train {cfg.name}: {L} layers, d_model {cfg.d_model}, "
+    print(f"train {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B params, remat {cfg.remat}, attn_impl "
           f"{cfg.attn_impl}, xent {cfg.xent_impl}; batch {BATCH} x {PROMPT}; "
           f"init {time.perf_counter() - t0:.1f} s")
@@ -1916,17 +2046,16 @@ def train_path(dev):
         # the moments are zeros: only the params are kept between paths
         return steps.TrainState(params=params0, opt=adamw.init(params0))
 
-    def run():
-        return train.train(cfg, fresh(), batcher, 0, TRAIN_STEPS,
-                           lr=TRAIN_LR, total_steps=TRAIN_TOTAL, device=dev,
-                           log_every=1)
+    def run(c, steps_run=TRAIN_STEPS):
+        return train.train(c, fresh(), batcher, 0, steps_run, lr=TRAIN_LR,
+                           total_steps=TRAIN_TOTAL, device=dev, log_every=1)
 
     batch0 = batch_to(batcher.batch_at(0), dev)
     counters = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _reset(counters)
-    kern = run()                            # the main path
+    kern = run(cfg)                          # the main path
     torch.cuda.synchronize()
     launches = _read(counters)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -1936,77 +2065,119 @@ def train_path(dev):
           f"{step_ms:.1f} ms/step over steps 2-{TRAIN_STEPS} "
           f"({BATCH * PROMPT / step_ms * 1e3:.0f} tokens/s); peak memory "
           f"{peak_gb:.2f} GB; launches {launches}")
-    expect = {k: 0 for k in counters}
-    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
-                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS)
-    require(launches == expect, ("train launches", launches, expect))
+    require(launches == expect, ("train launches", cfg.name, launches, expect))
     require(all(torch.isfinite(torch.tensor(m["loss"])) for m in kern.metrics),
             "a train loss is not finite")
     require(kern.metrics[-1]["step"] == TRAIN_STEPS, kern.metrics[-1])
     kern_metrics = kern.metrics
     del kern                                 # frees its state
     _, g_kern = steps.value_and_grad(cfg, params0, batch0)
-    g_kern = _norm_grads(g_kern)
+    g_kern = pick(g_kern)
     before_plain = _read(counters)
-    with plain_kernels():
-        plain = run()
-        _, g_plain = steps.value_and_grad(cfg, params0, batch0)
-        g_plain = _norm_grads(g_plain)
-        cfg_ref = dataclasses.replace(cfg, attn_impl="reference")
-        floor_run = train.train(cfg_ref, fresh(), batcher, 0, TRAIN_STEPS,
-                                lr=TRAIN_LR, total_steps=TRAIN_TOTAL,
-                                device=dev, log_every=1)
-        _, g_floor = steps.value_and_grad(cfg_ref, params0, batch0)
-        g_floor = _norm_grads(g_floor)
+    runs, grads = {}, {}
+    for name, (ctx, c) in (("plain", plain), ("floor", floor)):
+        t0 = time.perf_counter()
+        with ctx:
+            runs[name] = run(c, plain_steps).metrics
+            grads[name] = pick(steps.value_and_grad(c, params0, batch0)[1])
+        print(f"train {cfg.name}, {name} path: "
+              f"{time.perf_counter() - t0:.1f} s")
     require(_read(counters) == before_plain, "the plain paths launched a kernel")
 
     def rel(a, b):
         return abs(a - b) / max(abs(a), 1e-30)
 
-    errs, floor = {}, {}
-    for i, (k_m, p_m, f_m) in enumerate(zip(kern_metrics, plain.metrics,
-                                            floor_run.metrics)):
+    errs, noise = {}, {}
+    for i, (k_m, p_m, f_m) in enumerate(zip(kern_metrics, runs["plain"],
+                                            runs["floor"])):
         for key in ("loss", "grad_norm"):
             errs[f"step{i + 1}.{key}"] = rel(p_m[key], k_m[key])
-            floor[f"step{i + 1}.{key}"] = rel(p_m[key], f_m[key])
-    for name in NORM_LEAVES:
-        require(float(g_kern[name].abs().max()) > 0,
-                f"the kernel path's {name} gradient is zero")
-        errs[f"grad.{name}"] = rel_err(g_plain[name], g_kern[name])
-        floor[f"grad.{name}"] = rel_err(g_plain[name], g_floor[name])
-    print(f"train kernels vs plain path (relative): {json.dumps(errs)}; "
-          f"noise floor between two plain paths: {json.dumps(floor)}")
+            noise[f"step{i + 1}.{key}"] = rel(p_m[key], f_m[key])
+    for name, g in g_kern.items():
+        require(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0,
+                f"the kernel path's {name} gradient is zero or not finite")
+        errs[f"grad.{name}"] = rel_err(grads["plain"][name], g)
+        noise[f"grad.{name}"] = rel_err(grads["plain"][name],
+                                        grads["floor"][name])
+    print(f"train {cfg.name} kernels vs plain path (relative): "
+          f"{json.dumps(errs)}; noise floor between two plain paths: "
+          f"{json.dumps(noise)}")
     for key, err in errs.items():
         require(err < (GRAD_REL_TOL if "grad" in key else LOSS_REL_TOL),
-                (key, err))
-    del plain, floor_run, g_kern, g_plain, g_floor
+                (cfg.name, key, err))
+    del runs, grads, g_kern
 
     # one more step through the kernels, profiled: the card's busy share
     # of the step's wall time and where its device time goes
-    state = fresh()
-    batch = batch_to(batcher.batch_at(0), dev)
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
+    def step(state):
         t0 = time.perf_counter()
-        state, metrics = steps.train_step(cfg, state, batch, peak_lr=TRAIN_LR,
-                                          warmup_steps=20,
-                                          total_steps=TRAIN_TOTAL)
+        _, metrics = steps.train_step(cfg, state, batch0, peak_lr=TRAIN_LR,
+                                      warmup_steps=20, total_steps=TRAIN_TOTAL)
         float(metrics["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    del state
-    times, calls = _kernel_times(prof)
+        return (time.perf_counter() - t0) * 1e3
+
+    times, calls, wall_ms = profiled(
+        step, setup=fresh,
+        activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA))
     require(bool(times), "torch.profiler recorded no device time")
     dev_ms = sum(times.values()) / 1e3
-    print(f"train step profiled: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms "
-          f"(busy {dev_ms / wall_ms:.1%}), {sum(calls.values())} launches; "
-          f"top kernels by device time:")
+    print(f"{label} step profiled: wall {wall_ms:.1f} ms, device "
+          f"{dev_ms:.1f} ms (busy {dev_ms / wall_ms:.1%}), "
+          f"{sum(calls.values())} launches; top kernels by device time:")
     for name, us in times.most_common(12):
         print(f"  {us / 1e3:9.3f} ms {us / 1e3 / dev_ms:6.1%} "
               f"{calls[name]:6d}x  {name[:100]}")
     del params0, batch0
     torch.cuda.empty_cache()
+    return launches
+
+
+def train_path(dev):
+    """Phase 6: internlm2-1.8b at full width and depth through the
+    trainer's step loop, the RMSNorm forward (4L + 1 a step under remat
+    "block") and backward (2L + 1) kernels against the plain path and its
+    chunked attention, the floor the reference attention; then the
+    reduced resume check. Returns the kernel run's launch counts."""
+    from repro_torch import configs
+    cfg = configs.get(ARCH)                  # attn_impl "chunked", remat "block"
+    L = cfg.num_layers
+    expect = {k: 0 for k in launch_counters()}
+    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
+                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    launches = train_compare(
+        dev, cfg, expect, (plain_kernels(), cfg),
+        (plain_kernels(), dataclasses.replace(cfg, attn_impl="reference")),
+        _norm_grads, "train")
     resume_check(dev)
+    return launches
+
+
+def train_ssm_path(dev):
+    """Phase 6b: mamba2-130m at full width and depth (24 layers, d_model
+    768, chunk 128) through the trainer's step loop. A step under remat
+    "block" runs each layer's forward twice (the second in the backward):
+    RMSNorm ln1 and the mixer's gated norm, 2 a layer, and the final norm,
+    4L + 1; the SSD chunk kernel once a forward, 2L, all on the tensor-core
+    kernel (bf16, chunk 128); the backward kernels once a layer, RMSNorm
+    2L + 1 and SSD L. The first step's loss and grad norm and every leaf's
+    gradient are held against the plain path with the sequential oracle
+    ``ssd_ref``, the floor the reference model's chunked scan. The plain
+    path runs one step, not TRAIN_STEPS: the oracle's Python loop over
+    PROMPT tokens takes ~25 s a step at full depth on an H100."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.get(SSM_ARCH)              # remat "block"
+    L = cfg.num_layers
+    expect = {k: 0 for k in launch_counters()}
+    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
+                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS,
+                  ssd=2 * L * TRAIN_STEPS, ssd_tc=2 * L * TRAIN_STEPS,
+                  ssd_bwd=L * TRAIN_STEPS)
+    launches = train_compare(
+        dev, cfg, expect, (plain_kernels(scan="sequential"), cfg),
+        (plain_kernels(scan="chunked"), cfg), _named_grads, "train mamba2",
+        plain_steps=1)
+    print(f"train {cfg.name}: phase 6b {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -2967,7 +3138,8 @@ def main() -> int:
     rows = {"rmsnorm": check_rmsnorm(dev, timer, peaks),
             "rmsnorm_bwd": check_rmsnorm_bwd(dev, timer, peaks),
             "flash_attention": check_flash(dev, timer, peaks),
-            "ssd": check_ssd(dev, timer, peaks)}
+            "ssd": check_ssd(dev, timer, peaks),
+            "ssd_bwd": check_ssd_bwd(dev, timer, peaks)}
     del timer
     by_path = {ARCH: serve_full(dev), SSM_ARCH: serve_ssm(dev),
                WINDOWED_ARCH: serve_windowed(dev), **serve_moe(dev),
@@ -2975,27 +3147,33 @@ def main() -> int:
                AUDIO_ARCH: serve_audio(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
+               "train-mamba2": train_ssm_path(dev),
                "lm-workflow": lm_workflow_path(dev),
                "paper-workflows": paper_workflows_path(dev),
                "fleet": fleet_path(dev, smi),
                "examples": examples_path(dev, smi)}
 
+    # name: (source, the TPU kernel it replaces), or (source, None, what
+    # the reference does instead) for a backward the TPU package lacks
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/rmsnorm.py:28"),
-        # no TPU kernel: the reference differentiates the jnp rmsnorm
-        # (src/repro/models/layers.py:27) by autodiff
-        "rmsnorm_bwd": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", None),
+        "rmsnorm_bwd": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu", None,
+                        "the reference differentiates "
+                        "src/repro/models/layers.py:27 by autodiff"),
         "flash_attention": (
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:109"),
         "ssd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu",
                 "src/repro/kernels/ssd/ssd.py:76"),
+        "ssd_bwd": ("src/repro_torch/kernels/ssd/csrc/ssd.cu", None,
+                    "the reference differentiates src/repro/models/ssd.py "
+                    "ssd_scan_reference by autodiff"),
     }
     # launches: the sum over the main paths; each path's count beside it,
     # and for flash and ssd how many ran the bf16 tensor-core kernel
     kernels = []
-    for k, (source, replaces) in meta.items():
+    for k, (source, replaces, *note) in meta.items():
         row = {"name": k, "route": "cuda", "source": source,
                "replaces": replaces,
                "launches": sum(n[k] for n in by_path.values()),
@@ -3003,9 +3181,8 @@ def main() -> int:
         if f"{k}_tc" in launch_counters():
             row["launches_tensor_core"] = sum(
                 n[f"{k}_tc"] for n in by_path.values())
-        if replaces is None:
-            row["note"] = ("the reference differentiates "
-                           "src/repro/models/layers.py:27 by autodiff")
+        if note:
+            row["note"] = note[0]
         kernels.append({**row, **rows[k]})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")

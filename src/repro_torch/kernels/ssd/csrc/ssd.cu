@@ -248,6 +248,420 @@ int launch(const void* x, const void* dt, const void* cs, const void* B,
 
 }  // namespace simt
 
+// ================================================ backward, CUDA cores
+// The backward of the chunk function above, for fp32 or bf16 x, B, C
+// (dt, cs, the cotangents and every output fp32). The TPU package has no
+// kernel here: the reference differentiates its plain chunked scan
+// (src/repro/models/ssd.py ssd_scan_reference) by autodiff. For each
+// (batch, chunk, head) cell, with E_ij = exp(cs_i - cs_j) for i >= j (the
+// exponent of the masked half is never taken), cb = C B^T, w = cb o E o
+// dt_j, seg_l = exp(cs_end - cs_l), dte = dt o seg, and the cotangents dy
+// (L x P) and dst (N x P):
+//     dx    = w^T dy + dte o (B dst)
+//     q     = (dy x^T) o cb o E  on i >= j
+//     ddt_j = sum_i q_ij + ddte_j seg_j,    ddte_l = x_l . (B dst)_l
+//     dcs_i = sum_j q_ij dt_j - dt_i sum_k q_ki - ddte_i dte_i
+//             (+ sum_l ddte_l dte_l at the chunk's last row)
+//     dC    = dcb B,  dB = dcb^T C + sum_h (x o dte) dst^T,
+//     dcb   = sum_h (dy x^T) o E o dt_j  on i >= j
+// (kernels/ssd/ref.py ssd_chunk_bwd_ref). B and C are shared by the heads
+// (n_groups = 1), so dB and dC sum over them: in a second launch, in head
+// order, with no atomics, so two calls give the same bits.
+//
+// Bound on this card: bytes. At mamba2-130m's train shape (b 4, S 512, H
+// 24, P 64, N 128, L 128, bf16 x/B/C) the call must read x, dt, cs, B, C,
+// dy and dst and write dx, ddt, dcs, dB, dC once: ~48 MB, ~14 us at 3.35
+// TB/s, against ~2.5 GFLOP of products (~2.5 us at the bf16 tensor peak).
+// This first version runs on the CUDA cores in fp32 and also writes and
+// reads each head's share of dcb (the causal half) and of dB's state term
+// through a workspace (~38 MB more at that shape); tensor cores and a
+// fused head sum are later work.
+//
+// Launch 1, one block of 256 threads per cell (grid (H, nc, b)), in two
+// phases over panels of TP = min(32, L) rows, products as 4 x 4 register
+// tiles (the forward's `outer`):
+//   A. the state term, per panel of rows l: B dst, then ddte and dte o
+//      (B dst) (dx's first part, to dx), and (x o dte) dst^T (to the dB
+//      workspace); dst (N x P) stays in shared memory.
+//   B. the quadratic term, per panel of columns j, over rows i >= j: cb
+//      and dy x^T on the same register tile, then w and q to shared
+//      memory and dW o E o dt_j to the dcb workspace; column sums of q
+//      (ddt_j, and dcs_j's second term), row sums of q o dt (dcs_i's
+//      first, added panel by panel by the thread of row i), and the
+//      panel's rows of dx += w^T dy. C and dy (L x N, L x P) stay in
+//      shared memory.
+//   Shared memory at L = N = P = 128: ~207 KB, at mamba2's P = 64 ~166 KB.
+// Launch 2, one block per 16 rows r of a chunk (grid (L / 16, nc, b)):
+// the rows r of dcb and its columns r, each summed over the heads in
+// order, then dC rows r = dcb[r] B and dB rows r = dcb[:, r]^T C plus the
+// heads' state terms, in order.
+namespace bwd {
+
+using simt::kPad;
+using simt::kThreads;
+using simt::ld4;
+using simt::outer;
+using simt::to_float;
+
+constexpr int kPanel = 32;   // rows (phase A) or columns (phase B) a panel
+constexpr int kSumRows = 16; // rows r a block of the head sum
+
+// element k of each of four rows, as one float4 (k unrolled to a constant)
+__device__ __forceinline__ float4 column(const float4 (&v)[4], int k) {
+  auto at = [k](const float4& u) { return k == 0 ? u.x : k == 1 ? u.y : k == 2 ? u.z : u.w; };
+  return make_float4(at(v[0]), at(v[1]), at(v[2]), at(v[3]));
+}
+
+__host__ __device__ inline int panel(int L) { return L < kPanel ? L : kPanel; }
+__host__ __device__ inline int sum_rows(int L) { return L < kSumRows ? L : kSumRows; }
+
+// shared floats of launch 1: 7 vectors of L, the panels' B^T and x^T,
+// then phase A's dst and B dst panel or phase B's C, dy, w and q
+inline size_t cell_floats(int L, int N, int P) {
+  const size_t T = panel(L) + kPad;
+  const size_t common = 7 * static_cast<size_t>(L) + (N + P) * T;
+  const size_t a = static_cast<size_t>(N) * (P + kPad) + panel(L) * static_cast<size_t>(P + kPad);
+  const size_t b = static_cast<size_t>(L) * (N + kPad) + static_cast<size_t>(L) * (P + kPad) +
+                   2 * static_cast<size_t>(L) * T;
+  return common + (a > b ? a : b);
+}
+
+inline size_t sum_floats(int L, int N) {
+  return 2 * static_cast<size_t>(L) * (N + kPad) + 2 * static_cast<size_t>(sum_rows(L)) * (L + kPad);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_cell(const T* __restrict__ x, const float* __restrict__ dt,
+             const float* __restrict__ cs, const T* __restrict__ Bm,
+             const T* __restrict__ Cm, const float* __restrict__ dy,
+             const float* __restrict__ dst, float* __restrict__ dx,
+             float* __restrict__ ddt, float* __restrict__ dcs,
+             float* __restrict__ ws_cb, float* __restrict__ ws_b, int S, int H,
+             int P, int N, int L) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int nc = S / L;
+  const int TP = panel(L);
+  const int ldt = TP + kPad, ldp = P + kPad, ldn = N + kPad;
+  float* const sDt = smem;
+  float* const sCs = sDt + L;
+  float* const sSeg = sCs + L;
+  float* const sDte = sSeg + L;
+  float* const sDdte = sDte + L;
+  float* const sRow = sDdte + L;     // sum_j q_ij dt_j, panel by panel
+  float* const sCol = sRow + L;      // sum_i q_ij
+  float* const sBt = sCol + L;       // N x ldt: the panel's rows of B, transposed
+  float* const sXt = sBt + N * ldt;  // P x ldt: the panel's rows of x, transposed
+  float* const sDst = sXt + P * ldt; // phase A: N x ldp
+  float* const sBd = sDst + N * ldp; //          TP x ldp: B dst of the panel
+  float* const sC = sXt + P * ldt;   // phase B: L x ldn
+  float* const sDy = sC + L * ldn;   //          L x ldp
+  float* const sW = sDy + L * ldp;   //          L x ldt: w[i][j] of the panel's j
+  float* const sQ = sW + L * ldt;    //          L x ldt: q[i][j]
+  const int tid = threadIdx.x;
+  const size_t row0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
+  const size_t cell = (static_cast<size_t>(b) * nc + c) * H + h;
+  float* const wcb = ws_cb + cell * L * L;
+  float* const wb = ws_b + cell * L * N;
+
+  for (int l = tid; l < L; l += kThreads) {
+    const size_t i = (row0 + l) * H + h;
+    sDt[l] = dt[i];
+    sCs[l] = cs[i];
+    sRow[l] = 0.f;
+  }
+  for (int e = tid; e < N * P; e += kThreads) {
+    const int n = e / P, p = e - n * P;
+    sDst[n * ldp + p] = dst[cell * N * P + e];
+  }
+  __syncthreads();
+  const float cs_end = sCs[L - 1];
+  for (int l = tid; l < L; l += kThreads) {
+    sSeg[l] = expf(cs_end - sCs[l]);
+    sDte[l] = sDt[l] * sSeg[l];
+  }
+
+  // the panel's rows (phase A) or columns (phase B) of B and x, transposed
+  auto load_panel = [&](int r0, int rows) {
+    for (int e = tid; e < rows * N; e += kThreads) {
+      const int r = e / N, n = e - r * N;
+      sBt[n * ldt + r] = to_float(Bm[(row0 + r0 + r) * N + n]);
+    }
+    for (int e = tid; e < rows * P; e += kThreads) {
+      const int r = e / P, p = e - r * P;
+      sXt[p * ldt + r] = to_float(x[((row0 + r0 + r) * H + h) * P + p]);
+    }
+  };
+
+  // ---- A. the state term, a panel of rows l at a time
+  const int tp = P / 4, tn = N / 4;
+  for (int l0 = 0; l0 < L; l0 += TP) {
+    const int rows = min(TP, L - l0), tr = rows / 4;
+    __syncthreads();   // the previous panel is done with sBt, sXt, sBd
+    load_panel(l0, rows);
+    __syncthreads();
+    for (int t = tid; t < tr * (tp + tn); t += kThreads) {
+      float acc[4][4] = {};
+      if (t < tr * tp) {           // B dst (rows x P), k over n
+        const int r0 = (t / tp) * 4, p0 = (t % tp) * 4;
+        for (int n = 0; n < N; ++n)
+          outer(acc, ld4(sBt + n * ldt + r0), ld4(sDst + n * ldp + p0));
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          *reinterpret_cast<float4*>(sBd + (r0 + a) * ldp + p0) =
+              make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+      } else {                     // (x o dte) dst^T (rows x N), k over p
+        const int u = t - tr * tp;
+        const int r0 = (u / tn) * 4, n0 = (u % tn) * 4;
+        for (int p = 0; p < P; ++p)
+          outer(acc, ld4(sXt + p * ldt + r0),
+                make_float4(sDst[n0 * ldp + p], sDst[(n0 + 1) * ldp + p],
+                            sDst[(n0 + 2) * ldp + p], sDst[(n0 + 3) * ldp + p]));
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float d = sDte[l0 + r0 + a];
+          *reinterpret_cast<float4*>(wb + static_cast<size_t>(l0 + r0 + a) * N + n0) =
+              make_float4(acc[a][0] * d, acc[a][1] * d, acc[a][2] * d, acc[a][3] * d);
+        }
+      }
+    }
+    __syncthreads();
+    // ddte_l = x_l . (B dst)_l, one thread a row; dx = dte o (B dst)
+    for (int r = tid; r < rows; r += kThreads) {
+      float s = 0.f;
+      for (int p = 0; p < P; ++p) s = fmaf(sXt[p * ldt + r], sBd[r * ldp + p], s);
+      sDdte[l0 + r] = s;
+    }
+    for (int e = tid; e < rows * tp; e += kThreads) {
+      const int r = e / tp, p0 = (e % tp) * 4;
+      const float d = sDte[l0 + r];
+      const float4 v = ld4(sBd + r * ldp + p0);
+      *reinterpret_cast<float4*>(dx + ((row0 + l0 + r) * H + h) * P + p0) =
+          make_float4(v.x * d, v.y * d, v.z * d, v.w * d);
+    }
+  }
+  __syncthreads();   // phase B's C and dy take the place of dst and B dst
+
+  // ---- B. the quadratic term, a panel of columns j at a time
+  for (int e = tid; e < L * N; e += kThreads) {
+    const int i = e / N, n = e - i * N;
+    sC[i * ldn + n] = to_float(Cm[(row0 + i) * N + n]);
+  }
+  for (int e = tid; e < L * P; e += kThreads) {
+    const int i = e / P, p = e - i * P;
+    sDy[i * ldp + p] = dy[((row0 + i) * H + h) * P + p];
+  }
+  for (int j0 = 0; j0 < L; j0 += TP) {
+    const int cols = min(TP, L - j0), tcol = cols / 4;
+    const int ti = (L - j0) / 4;   // row tiles i >= j0
+    __syncthreads();   // the previous panel is done with sBt, sXt, sW, sQ
+    load_panel(j0, cols);
+    __syncthreads();
+    // B1. cb and dW on one 4 x 4 tile (rows i0.., columns j0 + c0..);
+    //     tiles wholly above the diagonal are skipped (never read)
+    for (int t = tid; t < ti * tcol; t += kThreads) {
+      const int i0 = j0 + (t / tcol) * 4, c0 = (t % tcol) * 4;
+      if (j0 + c0 > i0 + 3) continue;
+      float cb[4][4] = {}, dw[4][4] = {};
+      for (int n = 0; n < N; n += 4) {
+        float4 cv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) cv[a] = ld4(sC + (i0 + a) * ldn + n);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          outer(cb, column(cv, k), ld4(sBt + (n + k) * ldt + c0));
+      }
+      for (int p = 0; p < P; p += 4) {
+        float4 yv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) yv[a] = ld4(sDy + (i0 + a) * ldp + p);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          outer(dw, column(yv, k), ld4(sXt + (p + k) * ldt + c0));
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = i0 + a;
+        float w[4], q[4], g[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + c0 + u;
+          w[u] = q[u] = g[u] = 0.f;
+          if (j <= i) {
+            const float e = expf(sCs[i] - sCs[j]);
+            const float cbe = cb[a][u] * e;
+            w[u] = cbe * sDt[j];
+            q[u] = dw[a][u] * cbe;
+            g[u] = dw[a][u] * e * sDt[j];
+          }
+        }
+        *reinterpret_cast<float4*>(sW + i * ldt + c0) = make_float4(w[0], w[1], w[2], w[3]);
+        *reinterpret_cast<float4*>(sQ + i * ldt + c0) = make_float4(q[0], q[1], q[2], q[3]);
+        *reinterpret_cast<float4*>(wcb + static_cast<size_t>(i) * L + j0 + c0) =
+            make_float4(g[0], g[1], g[2], g[3]);
+      }
+    }
+    __syncthreads();
+    // B2. column sums of q (ddt), row sums of q o dt (dcs), and the
+    //     panel's rows of dx += w^T dy over i >= j
+    const int rows = L - j0;
+    for (int t = tid; t < cols + rows + tcol * tp; t += kThreads) {
+      if (t < cols) {
+        const int j = j0 + t;
+        float s = 0.f;
+        for (int i = j; i < L; ++i) s += sQ[i * ldt + t];
+        sCol[j] = s;
+        ddt[(row0 + j) * H + h] = s + sDdte[j] * sSeg[j];
+      } else if (t < cols + rows) {
+        const int i = j0 + t - cols;
+        const int cend = min(cols, i - j0 + 1);
+        float s = 0.f;
+        for (int u = 0; u < cend; ++u) s = fmaf(sQ[i * ldt + u], sDt[j0 + u], s);
+        sRow[i] += s;
+      } else {
+        const int u = t - cols - rows;
+        const int c0 = (u / tp) * 4, p0 = (u % tp) * 4;
+        float acc[4][4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const float4 v = ld4(dx + ((row0 + j0 + c0 + a) * H + h) * P + p0);
+          acc[a][0] = v.x; acc[a][1] = v.y; acc[a][2] = v.z; acc[a][3] = v.w;
+        }
+        float part[4][4] = {};
+        for (int i = j0 + c0; i < L; ++i)
+          outer(part, ld4(sW + i * ldt + c0), ld4(sDy + i * ldp + p0));
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          *reinterpret_cast<float4*>(dx + ((row0 + j0 + c0 + a) * H + h) * P + p0) =
+              make_float4(part[a][0] + acc[a][0], part[a][1] + acc[a][1],
+                          part[a][2] + acc[a][2], part[a][3] + acc[a][3]);
+      }
+    }
+  }
+  __syncthreads();
+  // dcs: the row sums, the column sums, the state term, and at the last
+  // row the chunk end's share of every row's state term
+  for (int l = tid; l < L; l += kThreads) {
+    float v = sRow[l] - sDt[l] * sCol[l] - sDdte[l] * sDte[l];
+    if (l == L - 1) {
+      float s = 0.f;
+      for (int m = 0; m < L; ++m) s = fmaf(sDdte[m], sDte[m], s);
+      v += s;
+    }
+    dcs[(row0 + l) * H + h] = v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_sum(const T* __restrict__ Bm, const T* __restrict__ Cm,
+            const float* __restrict__ ws_cb, const float* __restrict__ ws_b,
+            float* __restrict__ dB, float* __restrict__ dC, int S, int H,
+            int N, int L) {
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  const int TR = sum_rows(L);
+  const int r0 = blockIdx.x * TR, c = blockIdx.y, b = blockIdx.z;
+  const int nc = S / L;
+  const int rows = min(TR, L - r0);
+  const int ldn = N + kPad, ldl = L + kPad;
+  float* const sB = smem;              // L x ldn
+  float* const sC = sB + L * ldn;      // L x ldn
+  float* const sR = sC + L * ldn;      // TR x ldl: dcb[r][j], j <= r
+  float* const sK = sR + TR * ldl;     // TR x ldl: dcb[i][r], i >= r
+  const int tid = threadIdx.x;
+  const size_t row0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
+  const size_t cell0 = (static_cast<size_t>(b) * nc + c) * H;   // head 0's cell
+  const size_t hs_cb = static_cast<size_t>(L) * L, hs_b = static_cast<size_t>(L) * N;
+
+  for (int e = tid; e < L * N; e += kThreads) {
+    const int l = e / N, n = e - l * N;
+    sB[l * ldn + n] = to_float(Bm[(row0 + l) * N + n]);
+    sC[l * ldn + n] = to_float(Cm[(row0 + l) * N + n]);
+  }
+  const float* const wcb = ws_cb + cell0 * hs_cb;
+  for (int e = tid; e < rows * L; e += kThreads) {
+    const int rr = e / L, j = e - rr * L, r = r0 + rr;
+    float s = 0.f;
+    if (j <= r)
+      for (int hh = 0; hh < H; ++hh) s += wcb[hh * hs_cb + static_cast<size_t>(r) * L + j];
+    sR[rr * ldl + j] = s;
+  }
+  for (int e = tid; e < L * rows; e += kThreads) {
+    const int i = e / rows, rr = e - i * rows, r = r0 + rr;
+    float s = 0.f;
+    if (i >= r)
+      for (int hh = 0; hh < H; ++hh) s += wcb[hh * hs_cb + static_cast<size_t>(i) * L + r];
+    sK[rr * ldl + i] = s;
+  }
+  __syncthreads();
+  const int tr = rows / 4, tn = N / 4;
+  const float* const wb = ws_b + cell0 * hs_b;
+  for (int t = tid; t < 2 * tr * tn; t += kThreads) {
+    const bool is_c = t < tr * tn;
+    const int u = is_c ? t : t - tr * tn;
+    const int rr0 = (u / tn) * 4, n0 = (u % tn) * 4;
+    float acc[4][4] = {};
+    if (is_c) {   // dC[r] = sum_{j <= r} dcb[r][j] B[j]
+      const int jend = r0 + rr0 + 4;
+      for (int j = 0; j < jend; ++j)
+        outer(acc, make_float4(sR[rr0 * ldl + j], sR[(rr0 + 1) * ldl + j],
+                               sR[(rr0 + 2) * ldl + j], sR[(rr0 + 3) * ldl + j]),
+              ld4(sB + j * ldn + n0));
+    } else {      // dB[r] = sum_{i >= r} dcb[i][r] C[i] + the heads' state terms
+      for (int i = r0 + rr0; i < L; ++i)
+        outer(acc, make_float4(sK[rr0 * ldl + i], sK[(rr0 + 1) * ldl + i],
+                               sK[(rr0 + 2) * ldl + i], sK[(rr0 + 3) * ldl + i]),
+              ld4(sC + i * ldn + n0));
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        for (int hh = 0; hh < H; ++hh) {
+          const float4 v = ld4(wb + hh * hs_b + static_cast<size_t>(r0 + rr0 + a) * N + n0);
+          acc[a][0] += v.x; acc[a][1] += v.y; acc[a][2] += v.z; acc[a][3] += v.w;
+        }
+    }
+    float* out = (is_c ? dC : dB) + (row0 + r0 + rr0) * N + n0;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+      *reinterpret_cast<float4*>(out + a * N) =
+          make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* dt, const void* cs, const void* B,
+           const void* C, const void* dy, const void* dst, void* dx, void* ddt,
+           void* dcs, void* dB, void* dC, void* ws_cb, void* ws_b, int batch,
+           int S, int H, int P, int N, int L, cudaStream_t stream) {
+  const size_t bytes1 = cell_floats(L, N, P) * sizeof(float);
+  const size_t bytes2 = sum_floats(L, N) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_cell<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(
+      ssd_bwd_sum<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes2));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_bwd_cell<T><<<dim3(H, S / L, batch), kThreads, bytes1, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(dt),
+      static_cast<const float*>(cs), static_cast<const T*>(B),
+      static_cast<const T*>(C), static_cast<const float*>(dy),
+      static_cast<const float*>(dst), static_cast<float*>(dx),
+      static_cast<float*>(ddt), static_cast<float*>(dcs),
+      static_cast<float*>(ws_cb), static_cast<float*>(ws_b), S, H, P, N, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int TR = sum_rows(L);
+  ssd_bwd_sum<T><<<dim3((L + TR - 1) / TR, S / L, batch), kThreads, bytes2, stream>>>(
+      static_cast<const T*>(B), static_cast<const T*>(C),
+      static_cast<const float*>(ws_cb), static_cast<const float*>(ws_b),
+      static_cast<float*>(dB), static_cast<float*>(dC), S, H, N, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
+
 // ================================================ bf16, tensor cores
 namespace tc {
 
@@ -613,6 +1027,27 @@ int ssd_chunk_fwd_tc(const void* x, const void* dt, const void* cs,
     case 128: return tc::launch_at<128>(x, dt, cs, B, C, y, st, batch, S, H, P, N, group, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The backward (the CUDA-core kernels of namespace bwd): x, B, C fp32
+// (is_bf16 = 0) or bf16 (is_bf16 = 1); dt, cs, dy (batch, S, H, P), dst
+// (batch, S / L, H, N, P) and the outputs dx (batch, S, H, P), ddt, dcs
+// (batch, S, H), dB, dC (batch, S, N) fp32; the workspaces ws_cb (batch,
+// S / L, H, L, L) and ws_b (batch, S / L, H, L, N) fp32. Two launches on
+// `stream`; L, N, P multiples of 4, at most 128.
+int ssd_chunk_bwd(const void* x, const void* dt, const void* cs,
+                  const void* B, const void* C, const void* dy,
+                  const void* dst, void* dx, void* ddt, void* dcs, void* dB,
+                  void* dC, void* ws_cb, void* ws_b, int batch, int S, int H,
+                  int P, int N, int L, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L % 4 || N % 4 || P % 4 || L < 4 || N < 4 || P < 4 || L > 128 || N > 128 || P > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_bf16
+      ? bwd::launch<__nv_bfloat16>(x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC,
+                                   ws_cb, ws_b, batch, S, H, P, N, L, s)
+      : bwd::launch<float>(x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC, ws_cb,
+                           ws_b, batch, S, H, P, N, L, s);
 }
 
 const char* kernel_error_string(int code) {

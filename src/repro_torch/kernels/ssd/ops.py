@@ -8,10 +8,15 @@ scans the chunk boundary states and adds the inter-chunk output. There is
 no off-shape fallback: on a CUDA tensor ``ssd_chunk`` launches a kernel or
 raises.
 
-``csrc/ssd.cu`` holds two kernels, and ``route`` picks one by dtype and
-shape: bf16 at the tensor-core shapes runs the tensor-core kernel (C Bᵀ
-once per block of ``head_group`` heads, products as split-bf16 wgmma);
-fp32, and every other shape, the CUDA-core kernel.
+``csrc/ssd.cu`` holds two forward kernels, and ``route`` picks one by
+dtype and shape: bf16 at the tensor-core shapes runs the tensor-core
+kernel (C Bᵀ once per block of ``head_group`` heads, products as
+split-bf16 wgmma); fp32, and every other shape, the CUDA-core kernel. It
+also holds the backward (``ssd_chunk_bwd``, CUDA cores, either dtype),
+which the TPU package does not have: ``SSDChunkFn`` pairs it with the
+forward, so that gradients flow through the chunk kernel, and ``ssd``
+calls it. The cumsum, the padding and the inter-chunk scan around it are
+plain torch, which autograd differentiates.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from .ref import ssd_chunk_ref
+from .ref import ssd_chunk_bwd_ref, ssd_chunk_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 MAX_DIM = 128     # L, N and P each at most this, and a multiple of 4
@@ -32,6 +37,7 @@ TC_CHUNKS = (64, 128)   # the tensor-core kernel's chunk lengths
 MAX_GROUP = 8           # heads a tensor-core block takes at most
 # route -> the library's launch function
 _ENTRY = {"tc": "ssd_chunk_fwd_tc", "simt": "ssd_chunk_fwd"}
+_BWD_ENTRY = "ssd_chunk_bwd"
 
 
 def route(dtype: torch.dtype, chunk: int, d_state: int, head_dim: int) -> str:
@@ -63,12 +69,49 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    bwd = getattr(lib, _BWD_ENTRY)
+    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
 def _n_sms(device: int) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check(what: str, x, dt, cs, B, C, chunk: int) -> None:
+    """What both kernels take: CUDA tensors on one device, x/B/C fp32 or
+    bf16 alike, dt/cs fp32, matching shapes, S a multiple of the chunk,
+    L, N and P multiples of 4 up to ``MAX_DIM``, all contiguous."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    L = chunk
+    tensors = (x, dt, cs, B, C)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"{what}: x, dt, cs, B, C on different devices")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"{what}: x/B/C dtypes {x.dtype}/{B.dtype}/"
+                         f"{C.dtype}; want one of {list(_DTYPES)}, all alike")
+    if dt.dtype != torch.float32 or cs.dtype != torch.float32:
+        raise ValueError(f"{what}: dt/cs must be fp32, got {dt.dtype}/"
+                         f"{cs.dtype}")
+    if (dt.shape != (bsz, S, H) or cs.shape != dt.shape
+            or B.shape != (bsz, S, N) or C.shape != B.shape):
+        raise ValueError(f"{what}: shapes x{tuple(x.shape)} dt"
+                         f"{tuple(dt.shape)} cs{tuple(cs.shape)} "
+                         f"B{tuple(B.shape)} C{tuple(C.shape)}")
+    if L <= 0 or S % L:
+        raise ValueError(f"{what}: S={S} is not a multiple of the chunk {L}")
+    for name, v in (("chunk", L), ("d_state", N), ("head_dim", P)):
+        if v % 4 or not 4 <= v <= MAX_DIM:
+            raise ValueError(f"{what}: {name}={v} is not a multiple of 4 "
+                             f"in [4, {MAX_DIM}]")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: x, dt, cs, B, C must be contiguous")
 
 
 def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
@@ -81,34 +124,10 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     """
     if x.device.type == "cpu":
         return ssd_chunk_ref(x, dt, cs, B, C, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunk: unsupported device {x.device}")
+    _check("ssd_chunk", x, dt, cs, B, C, chunk)
     bsz, S, H, P = x.shape
     N = B.shape[-1]
     L = chunk
-    tensors = (x, dt, cs, B, C)
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("ssd_chunk: x, dt, cs, B, C on different devices")
-    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
-        raise ValueError(f"ssd_chunk: x/B/C dtypes {x.dtype}/{B.dtype}/"
-                         f"{C.dtype}; want one of {list(_DTYPES)}, all alike")
-    if dt.dtype != torch.float32 or cs.dtype != torch.float32:
-        raise ValueError(f"ssd_chunk: dt/cs must be fp32, got {dt.dtype}/"
-                         f"{cs.dtype}")
-    if (dt.shape != (bsz, S, H) or cs.shape != dt.shape
-            or B.shape != (bsz, S, N) or C.shape != B.shape):
-        raise ValueError(f"ssd_chunk: shapes x{tuple(x.shape)} dt"
-                         f"{tuple(dt.shape)} cs{tuple(cs.shape)} "
-                         f"B{tuple(B.shape)} C{tuple(C.shape)}")
-    if L <= 0 or S % L:
-        raise ValueError(f"ssd_chunk: S={S} is not a multiple of the chunk {L}")
-    for name, v in (("chunk", L), ("d_state", N), ("head_dim", P)):
-        if v % 4 or not 4 <= v <= MAX_DIM:
-            raise ValueError(f"ssd_chunk: {name}={v} is not a multiple of 4 "
-                             f"in [4, {MAX_DIM}]")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_chunk: x, dt, cs, B, C must be contiguous")
-
     y = torch.empty((bsz, S, H, P), dtype=torch.float32, device=x.device)
     states = torch.empty((bsz, S // L, H, N, P), dtype=torch.float32,
                          device=x.device)
@@ -134,10 +153,83 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     return y, states
 
 
+def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                  dstates: torch.Tensor, *, chunk: int
+                  ) -> tuple[torch.Tensor, ...]:
+    """The backward of ``ssd_chunk``: the cotangents ``dy`` of y_intra
+    (b,S,H,P) and ``dstates`` of the states (b,nc,H,N,P) to (dx (b,S,H,P),
+    ddt, dcs (b,S,H), dB, dC (b,S,N)), all fp32 (``ssd_chunk_bwd_ref``).
+    On a CUDA tensor one call is two launches of the library: a block per
+    (head, chunk, batch row) writes dx, ddt, dcs and each head's share of
+    dB and dC into a workspace, then a block per rows of a chunk sums the
+    shares in head order (no atomics: two calls give the same bits)."""
+    if x.device.type == "cpu":
+        return ssd_chunk_bwd_ref(x, dt, cs, B, C, dy, dstates, chunk=chunk)
+    _check("ssd_chunk_bwd", x, dt, cs, B, C, chunk)
+    bsz, S, H, P = x.shape
+    N = B.shape[-1]
+    L = chunk
+    nc = S // L
+    if dy.shape != x.shape or dstates.shape != (bsz, nc, H, N, P):
+        raise ValueError(f"ssd_chunk_bwd: dy{tuple(dy.shape)} and dstates"
+                         f"{tuple(dstates.shape)} do not match x"
+                         f"{tuple(x.shape)} at d_state {N}")
+    if dy.device != x.device or dstates.device != x.device:
+        raise ValueError("ssd_chunk_bwd: dy, dstates not on x's device")
+    dy = dy.float().contiguous()
+    dstates = dstates.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((bsz, S, H, P), **f32)
+    ddt = torch.empty((bsz, S, H), **f32)
+    dcs = torch.empty((bsz, S, H), **f32)
+    dB = torch.empty((bsz, S, N), **f32)
+    dC = torch.empty((bsz, S, N), **f32)
+    if dx.numel() == 0:
+        return dx, ddt, dcs, dB.zero_(), dC.zero_()
+    # each head's share of dcb (L x L a cell, the causal half written) and
+    # of dB's state term (L x N a cell)
+    ws_cb = torch.empty((bsz, nc, H, L, L), **f32)
+    ws_b = torch.empty((bsz, nc, H, L, N), **f32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = getattr(lib, _BWD_ENTRY)(
+        x.data_ptr(), dt.data_ptr(), cs.data_ptr(), B.data_ptr(),
+        C.data_ptr(), dy.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), dcs.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        ws_cb.data_ptr(), ws_b.data_ptr(), bsz, S, H, P, N, L,
+        _DTYPES[x.dtype], stream)
+    _build.check(lib, code, _BWD_ENTRY)
+    ssd.launches_bwd += 1
+    return dx, ddt, dcs, dB, dC
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """``ssd_chunk`` with ``ssd_chunk_bwd`` as its backward: the kernels on
+    CUDA tensors, their plain versions on CPU tensors. Returns (y_intra,
+    states) as ``ssd_chunk`` does; the gradients of x, B and C come back in
+    their dtype, those of dt and cs in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cs, B, C, chunk):
+        ctx.save_for_backward(x, dt, cs, B, C)
+        ctx.chunk = chunk
+        return ssd_chunk(x, dt, cs, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstates):
+        x, dt, cs, B, C = ctx.saved_tensors
+        dx, ddt, dcs, dB, dC = ssd_chunk_bwd(x, dt, cs, B, C, dy, dstates,
+                                             chunk=ctx.chunk)
+        return (dx.to(x.dtype), ddt, dcs, dB.to(B.dtype), dC.to(C.dtype),
+                None)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
         C: torch.Tensor, *, chunk: int = 128, h0: torch.Tensor | None = None
         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full SSD with the quadratic part in the chunk kernel.
+    """Full SSD with the quadratic part in the chunk kernel
+    (``SSDChunkFn``: differentiable through the backward kernel).
 
     x: (b,S,H,P); dt: (b,S,H) fp32 (post-softplus); a: (H,) fp32 (negative);
     B, C: (b,S,N); h0: optional (b,H,P,N) initial state.
@@ -160,7 +252,7 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
     nc = S // L
 
     cs = torch.cumsum((dt * a).reshape(bsz, nc, L, H), dim=2)     # within-chunk
-    y_intra, states = ssd_chunk(x, dt, cs.reshape(bsz, S, H), B, C, chunk=L)
+    y_intra, states = SSDChunkFn.apply(x, dt, cs.reshape(bsz, S, H), B, C, L)
 
     # inter-chunk scan over boundary states, (b,nc,H,N,P) → (b,nc,H,P,N)
     seg = torch.exp(cs[:, :, -1, :])                              # (b,nc,H)
@@ -183,3 +275,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 
 ssd.launches = 0      # chunk-kernel launches (in ssd_chunk) since last set to 0
 ssd.launches_tc = 0   # of those, the bf16 tensor-core kernel's
+ssd.launches_bwd = 0  # ssd_chunk_bwd calls (two launches each) on CUDA tensors

@@ -232,25 +232,27 @@ def census_busy_share(root: str, *, n_workers: int | None = None,
     (``torch.profiler``, CUDA activity): the wall seconds from the first
     node to the synchronised end, the card's device seconds (kernels and
     copies) and their share, and the device launches. Card only."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from .profile_serve import _kernel_times
+    from .profile_serve import profiled
     dev = resolve(device)
     _require(dev.type == "cuda", "the busy share is a card measurement")
     wd = W.WORKFLOWS["census"]
     workdir = os.path.join(root, "census_busy")
-    shutil.rmtree(workdir, ignore_errors=True)
-    sess = IterativeSession(workdir, engine=_engine(n_workers
-                                                    or default_workers()),
-                            storage=StoreConfig(budget_bytes=float(BUDGET)))
-    wf = wd.build(wd.knobs0, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def setup():   # a cold session, outside the profiled window
+        shutil.rmtree(workdir, ignore_errors=True)
+        sess = IterativeSession(workdir, engine=_engine(n_workers
+                                                        or default_workers()),
+                                storage=StoreConfig(budget_bytes=float(BUDGET)))
+        return sess, wd.build(wd.knobs0, device=dev)
+
+    def cold_iteration(arg):
+        sess, wf = arg
         t0 = time.perf_counter()
         rep = sess.run(wf)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    times, calls = _kernel_times(prof)
+        return rep, time.perf_counter() - t0
+
+    times, calls, (rep, wall) = profiled(cold_iteration, setup=setup)
     busy = sum(times.values()) / 1e6
     print(f"census_busy_share,{wall * 1e6:.0f},wall_s={wall:.3f};"
           f"device_s={busy:.4f};busy={busy / wall:.4f};"

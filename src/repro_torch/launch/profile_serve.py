@@ -17,6 +17,8 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import sys
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -38,6 +40,62 @@ def _kernel_times(prof) -> tuple[collections.Counter, collections.Counter]:
             out[e.key] += e.self_device_time_total
             calls[e.key] += e.count
     return out, calls
+
+
+# the kernel ``torch.cuda._sleep`` launches: the markers of a profiled window
+MARKER = "spin_kernel"
+# windows a call may take; the losses come in bursts of consecutive
+# windows, so each retry waits longer first
+PROFILE_TRIES = 4
+RETRY_PAUSE_S = 0.25
+# the leading marker's length (~0.1 ms): the call's first kernel starts
+# that far inside the window
+LEAD_CYCLES = 200_000
+
+
+def profiled(fn, *, activities=(ProfilerActivity.CUDA,), setup=None):
+    """``fn()`` (``fn(setup())`` with ``setup``, which runs outside the
+    window) under ``torch.profiler``, between two marker kernels
+    (``torch.cuda._sleep``): a leading one of ``LEAD_CYCLES``, so that
+    ``fn``'s first kernel does not start at the window's edge, and a short
+    trailing one. Returns (``_kernel_times`` without the markers, what
+    ``fn`` returned).
+
+    The profiler on the card now and then loses a kernel's record: a
+    window can come back without a marker (no CUDA activity recorded at
+    all), or with one and nothing of ``fn`` (a kernel that ran but was not
+    recorded). Either window is logged and profiled again from the start,
+    after a pause of ``RETRY_PAUSE_S`` times the windows tried, up to
+    ``PROFILE_TRIES`` windows (``profiled.again`` counts them), so that
+    only a kernel missing from every window reads as one that did not
+    run. A last window without a marker raises."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        if attempt > 1:
+            time.sleep(RETRY_PAUSE_S * (attempt - 1))
+        arg = setup() if setup is not None else None
+        torch.cuda.synchronize()
+        with profile(activities=list(activities)) as prof:
+            torch.cuda._sleep(LEAD_CYCLES)
+            out = fn(arg) if setup is not None else fn()
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        times, calls = _kernel_times(prof)
+        marker = [k for k in calls if MARKER in k]
+        for key in marker:   # no profiled call launches the marker itself
+            del calls[key], times[key]
+        if marker and (calls or attempt == PROFILE_TRIES):
+            return times, calls, out
+        what = ("its markers and nothing else" if marker else
+                f"no marker kernel ({len(calls)} kernel names)")
+        print(f"[profiler] window {attempt} of {PROFILE_TRIES} holds {what}",
+              file=sys.stderr, flush=True)
+        if attempt < PROFILE_TRIES:
+            profiled.again += 1
+    raise RuntimeError(f"torch.profiler recorded no CUDA activity in "
+                       f"{PROFILE_TRIES} windows, each with a marker kernel")
+
+
+profiled.again = 0   # windows profiled again since last set to 0
 
 
 def _report(label, wall_s, steps, times, calls, top):
@@ -72,13 +130,12 @@ def main(argv: list[str] | None = None) -> None:
     serve.run(cfg, params, prompts, args.gen_tokens, device=dev)   # warm-up
     timed = serve.run(cfg, params, prompts, args.gen_tokens, device=dev)
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof_pre:
-        serve.run(cfg, params, prompts, 1, device=dev)
-    with profile(activities=acts) as prof_all:
-        serve.run(cfg, params, prompts, args.gen_tokens, device=dev)
-    t_pre, c_pre = _kernel_times(prof_pre)
-    t_all, c_all = _kernel_times(prof_all)
+    acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    t_pre, c_pre, _ = profiled(
+        lambda: serve.run(cfg, params, prompts, 1, device=dev), activities=acts)
+    t_all, c_all, _ = profiled(
+        lambda: serve.run(cfg, params, prompts, args.gen_tokens, device=dev),
+        activities=acts)
     if not t_pre or not t_all:
         raise RuntimeError("torch.profiler recorded no device time")
     print(f"{torch.cuda.get_device_name(dev)}; {cfg.name} batch {args.batch} "

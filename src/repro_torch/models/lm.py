@@ -33,12 +33,13 @@ the SSM states (groups, attn_every - 1, ...). ``_hybrid_stack`` runs the
 SSM layers through the SSD chunk kernel as the ssm stack does, and the MoE
 FFN where ``cfg.layer_is_moe`` says, counted within the group.
 
-For training, each layer of the dense stack runs under
+For training, each layer of the dense and ssm stacks runs under
 ``torch.utils.checkpoint`` where the reference wraps its scan body in
 ``jax.checkpoint`` (``_maybe_remat``, ``cfg.remat``), and only where grad
-mode is on and there is no cache, so serving is unchanged. Training the
-ssm and hybrid families needs a backward of the SSD chunk kernel and
-raises in ``train/steps.py`` (ROADMAP queue 1 item 10).
+mode is on and there is no cache, so serving is unchanged. The ssm family
+trains through the SSD chunk kernel and its backward kernel. The hybrid
+family does not train yet (``train/steps.py``, ROADMAP queue 1 items 10b
+and 10c), and ``_hybrid_stack`` checkpoints nothing.
 
 The audio family is an encoder-decoder and lives in ``encdec.py``
 (``registry`` dispatches to it); ``lm.py`` refuses its configs.
@@ -245,7 +246,7 @@ def _maybe_remat(fn, cfg: ArchConfig):
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' has no torch checkpoint policy yet "
-            "(ROADMAP queue 1 item 10)")
+            "(ROADMAP queue 1 item 10d)")
     return lambda *args: torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False)
 
@@ -392,13 +393,19 @@ def _windowed_stack(cfg, params, h, positions, cache):
 def _ssm_stack(cfg, params, h, positions, cache):
     blocks = params["blocks"]
     has_cache = cache is not None
+
+    def body(h, aux, p, state):
+        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
+        out, new_state = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,
+                                           use_kernel=True)
+        return _ffn(cfg, p, h + out, aux) + (new_state,)
+
+    if torch.is_grad_enabled() and not has_cache:
+        body = _maybe_remat(body, cfg)
     aux = _no_aux(h)
     for i, p in enumerate(_unstack(blocks, cfg.num_layers)):
         state = (cache["conv"][i], cache["h"][i]) if has_cache else None
-        x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
-        out, (conv, hst) = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,
-                                             use_kernel=True)
-        h, aux = _ffn(cfg, p, h + out, aux)
+        h, aux, (conv, hst) = body(h, aux, p, state)
         if has_cache:
             cache["conv"][i].copy_(conv)
             cache["h"][i].copy_(hst)

@@ -18,9 +18,16 @@ branches: ``kernels.ssd.ops.ssd`` (the CUDA chunk kernel on CUDA tensors)
 or ``ssd_scan_reference`` (plain torch, chunked). Unlike the reference,
 whose switch defaults to off and whose stack never turns it on, the port
 defaults to the kernel, and ``lm._ssm_stack`` passes ``use_kernel=True``,
-so prefill goes through it; ``use_kernel=False`` is for parity tests
-against the reference's plain branch. The gated norm inside the block goes through the RMSNorm kernel's
-wrapper, as every norm of the port does.
+so prefill and training go through it (``ops.ssd`` is differentiable:
+its chunk kernel has a hand-written backward); ``use_kernel=False`` is
+for parity tests against the reference's plain branch. The gated norm
+inside the block goes through the RMSNorm kernel's wrapper, as every norm
+of the port does.
+
+One stated divergence: ``ssd_scan_reference`` masks the decay's exponent
+before the ``exp`` where the reference masks after it. The forward is the
+same bits; the reference's gradient is NaN at mamba2-130m's chunk of 128
+(the masked half overflows), the port's is finite.
 """
 from __future__ import annotations
 
@@ -110,10 +117,15 @@ def ssd_scan_reference(x, dt, a, B, C, chunk: int, h0=None):
     seg_end = cs[:, :, -1:, :]                     # total decay per chunk
 
     # --- intra-chunk (quadratic in L, matmul form) ---------------------------
-    # decay(i←j) = exp(cs_i − cs_j) for i ≥ j
+    # decay(i←j) = exp(cs_i − cs_j) for i ≥ j. The reference takes the exp
+    # of every entry and selects after it; above the diagonal that
+    # overflows at a long chunk (mamba2's 128), and the gradient of the
+    # select is inf · 0 = NaN. Masking the exponent to −inf first gives
+    # the same forward bits and a finite gradient.
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (b,nc,L,L,H)
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[None, None, :, :, None], torch.exp(diff), 0.0)
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                  float("-inf")))
     cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)            # (b,nc,L,L)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]       # (b,nc,L,L,H)
     y = torch.einsum("bcijh,bcjhp->bcihp", w.to(x.dtype), xc)
