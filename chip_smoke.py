@@ -30,8 +30,11 @@ Phases (any failure exits non-zero; none is caught and passed over):
      window that must also hold its marker kernel), and the library's
      backward timed as a CUDA-graph replay (its device time); the SSD
      backward (``ssd_chunk_bwd``) at every SSD case in fp32 and bf16,
-     two calls bitwise equal, its plain version also against autograd of
-     the forward's plain version, timed at mamba2-130m's train shape;
+     two calls bitwise equal, each call on the route ``bwd_route`` names
+     (the bf16 tensor-core kernel at the tensor-core shapes, the CUDA-core
+     kernels elsewhere), its plain version also against autograd of the
+     forward's plain version, timed at mamba2-130m's train shape and at
+     jamba's prefill shape (128 heads, d_state 16);
   4. serve internlm2-1.8b at full published width (batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.run`` with
      random weights from a seeded generator on the card; count the kernel
@@ -832,14 +835,17 @@ SSD_GRADS = ("dx", "ddt", "dcs", "dB", "dC")
 
 
 def check_ssd_bwd(dev, timer, peaks):
-    """The backward kernel (``ssd_chunk_bwd``) against its plain version
-    ``ssd_chunk_bwd_ref`` at every case of ``check_ssd``, fp32 and bf16,
-    each output held at SSD_TOL of its max |ref| (the forward's bound);
-    two calls bitwise equal; ``ssd_chunk_bwd_ref`` itself against autograd
-    of ``ssd_chunk_ref`` on the card (fp32), a check that shares none of
-    its derivation; then timed cold at mamba2-130m's train shape (its
-    prefill shape, bf16) beside the bound and the plain backward. No
-    single PyTorch call computes this function (``library_ms`` null)."""
+    """The backward kernels (``ssd_chunk_bwd``) against their plain
+    version ``ssd_chunk_bwd_ref`` at every case of ``check_ssd``, fp32 and
+    bf16, each output held at SSD_TOL of its max |ref| (the forward's
+    bound); two calls bitwise equal, each on the route ``bwd_route`` names
+    (``launches_bwd_tc`` counts the tensor-core kernel's calls);
+    ``ssd_chunk_bwd_ref`` itself against autograd of ``ssd_chunk_ref`` on
+    the card (fp32), a check that shares none of its derivation; then
+    timed cold in bf16 at mamba2-130m's train shape (the row's own keys)
+    and at jamba's prefill shape, each beside its bound and the plain
+    backward. No single PyTorch call computes this function
+    (``library_ms`` null)."""
     from repro_torch.kernels.ssd import ops, ref
     g = torch.Generator(device=dev).manual_seed(8)
 
@@ -860,18 +866,24 @@ def check_ssd_bwd(dev, timer, peaks):
         chunk = case[-1]
         for dtype in (torch.float32, torch.bfloat16):
             args = inputs(case, dtype)
-            before = ops.ssd.launches_bwd
+            kind = ops.bwd_route(dtype, chunk, case[4], case[3])
+            before = (ops.ssd.launches_bwd, ops.ssd.launches_bwd_tc)
             got = ops.ssd_chunk_bwd(*args, chunk=chunk)
             want = ref.ssd_chunk_bwd_ref(*args, chunk=chunk)
             again = ops.ssd_chunk_bwd(*args, chunk=chunk)
             torch.cuda.synchronize()
             errs = rel_errs(got, want)
             bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
-            print(f"ssd_chunk_bwd {case} {dtype}: max |err| / max |ref| "
-                  + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            print(f"ssd_chunk_bwd {case} {dtype} ({kind}): max |err| / max "
+                  "|ref| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
                   + f"; two calls bitwise: {bitwise}")
-            require(ops.ssd.launches_bwd == before + 2,
-                    ("ssd_chunk_bwd launches", case, dtype))
+            require((ops.ssd.launches_bwd, ops.ssd.launches_bwd_tc) == (
+                before[0] + 2, before[1] + 2 * (kind == "tc")),
+                    ("ssd_chunk_bwd launches", case, dtype, kind))
+            require(kind == ("tc" if dtype == torch.bfloat16
+                             and ops.route(dtype, chunk, case[4], case[3])
+                             == "tc" else "simt"),
+                    ("ssd_chunk_bwd route", case, dtype, kind))
             require(all(bool(torch.isfinite(t).all()) for t in got),
                     ("ssd_chunk_bwd not finite", case, dtype))
             require(all(v <= SSD_TOL for v in errs.values()),
@@ -894,9 +906,26 @@ def check_ssd_bwd(dev, timer, peaks):
                 and all(v <= SSD_TOL for v in errs.values()),
                 ("ssd_chunk_bwd_ref vs autograd", case, errs))
 
-    b, s, h, p, n, chunk = SSD_SERVING
-    args = inputs(SSD_SERVING, torch.bfloat16)
+    out = time_ssd_bwd(timer, peaks, inputs(SSD_SERVING, torch.bfloat16),
+                       SSD_SERVING, "mamba2 train",
+                       worst[(SSD_SERVING, torch.bfloat16)])
+    out["jamba_prefill"] = time_ssd_bwd(
+        timer, peaks, inputs(JAMBA_SSD, torch.bfloat16), JAMBA_SSD,
+        "jamba", worst[(JAMBA_SSD, torch.bfloat16)])
+    return out
+
+
+def time_ssd_bwd(timer, peaks, args, case, label, err):
+    """One bf16 train shape of the SSD backward: its cold-L2 ms beside the
+    bound and the plain backward's; the call must take the tensor-core
+    kernel."""
+    from repro_torch.kernels.ssd import ops, ref
+    b, s, h, p, n, chunk = case
     x, dt, cs, bm, cm, dy, dst = args
+    before = ops.ssd.launches_bwd_tc
+    ops.ssd_chunk_bwd(*args, chunk=chunk)
+    require(ops.ssd.launches_bwd_tc == before + 1,
+            f"the bf16 {label} ssd_chunk_bwd did not run the tensor-core kernel")
     nc = s // chunk
     # least work: each head's dy xᵀ and wᵀ dy on the causal half, its
     # B dst and (x ∘ dte) dstᵀ; C Bᵀ, dcb B and dcbᵀ C once a chunk
@@ -912,8 +941,8 @@ def check_ssd_bwd(dev, timer, peaks):
            "library_ms": None,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "max_abs_err": worst[(SSD_SERVING, torch.bfloat16)]}
-    print(f"ssd_chunk_bwd mamba2 train {SSD_SERVING} bf16: " + json.dumps(out)
+           "max_abs_err": err}
+    print(f"ssd_chunk_bwd {label} {case} bf16: " + json.dumps(out)
           + f" ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
           f"{out['bound_ms'] / out['ms']:.1%} of its bound, "
           f"{out['ms'] / out['bound_ms']:.2f}x it)")
@@ -993,7 +1022,8 @@ def launch_counters():
     one cooperative launch; ``ssd_bwd`` counts calls of ``ssd_chunk_bwd``,
     each two launches). ``flash_attention_tc`` and ``ssd_tc`` count the
     launches that ran the bf16 tensor-core kernel of flash and of the SSD
-    chunk."""
+    chunk, ``ssd_bwd_tc`` the backward's calls that ran its tensor-core
+    kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
@@ -1003,7 +1033,8 @@ def launch_counters():
             "flash_attention_tc": (fa_ops.flash_attention, "launches_tc"),
             "ssd": (ssd_ops.ssd, "launches"),
             "ssd_tc": (ssd_ops.ssd, "launches_tc"),
-            "ssd_bwd": (ssd_ops.ssd, "launches_bwd")}
+            "ssd_bwd": (ssd_ops.ssd, "launches_bwd"),
+            "ssd_bwd_tc": (ssd_ops.ssd, "launches_bwd_tc")}
 
 
 def serve_main(dev, cfg, expect, prompt=PROMPT, inputs=None):
@@ -1089,7 +1120,7 @@ def serve_full(dev):
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": cfg.num_layers,
         "flash_attention_tc": cfg.num_layers, "ssd": 0, "ssd_tc": 0,
-        "ssd_bwd": 0})[0]
+        "ssd_bwd": 0, "ssd_bwd_tc": 0})[0]
 
 
 def serve_ssm(dev):
@@ -1103,7 +1134,7 @@ def serve_ssm(dev):
     return serve_path(dev, cfg, plain_ssm_last_logits, "sequential", {
         "rmsnorm": (2 * cfg.num_layers + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": 0, "flash_attention_tc": 0, "ssd": cfg.num_layers,
-        "ssd_tc": cfg.num_layers, "ssd_bwd": 0})[0]
+        "ssd_tc": cfg.num_layers, "ssd_bwd": 0, "ssd_bwd_tc": 0})[0]
 
 
 def serve_windowed(dev):
@@ -1124,7 +1155,7 @@ def serve_windowed(dev):
         dev, cfg, plain_last_logits, "reference", {
             "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
             "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-            "ssd_tc": 0, "ssd_bwd": 0}, prompt=WINDOWED_PROMPT)
+            "ssd_tc": 0, "ssd_bwd": 0, "ssd_bwd_tc": 0}, prompt=WINDOWED_PROMPT)
     windowed_profile(dev, cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
@@ -1315,7 +1346,7 @@ def serve_moe(dev):
         out[name] = moe_path(dev, cfg, {
             "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
             "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-            "ssd_tc": 0, "ssd_bwd": 0})
+            "ssd_tc": 0, "ssd_bwd": 0, "ssd_bwd_tc": 0})
         torch.cuda.empty_cache()
     print(f"serve moe: phase 4d {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -1455,7 +1486,7 @@ def serve_vlm(dev):
     res, launches, params, prompts = serve_main(dev, cfg, {
         "rmsnorm": (2 * n + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": n, "flash_attention_tc": n, "ssd": 0,
-        "ssd_tc": 0, "ssd_bwd": 0}, inputs=vision)
+        "ssd_tc": 0, "ssd_bwd": 0, "ssd_bwd_tc": 0}, inputs=vision)
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     seq = torch.cat([tokens, res.tokens[:, :-1].to(dev)], 1)
     seq_streams = grid_positions(BATCH, PROMPT, VLM_GRID, dev, GEN - 1)
@@ -1520,7 +1551,8 @@ def serve_hybrid(dev):
     launches = moe_path(dev, cfg, {
         "rmsnorm": (groups * (3 * n_ssm + 2) + 1) * GEN, "rmsnorm_bwd": 0,
         "flash_attention": groups, "flash_attention_tc": groups,
-        "ssd": groups * n_ssm, "ssd_tc": groups * n_ssm, "ssd_bwd": 0})
+        "ssd": groups * n_ssm, "ssd_tc": groups * n_ssm, "ssd_bwd": 0,
+        "ssd_bwd_tc": 0})
     torch.cuda.empty_cache()
     print(f"serve {cfg.name}: phase 4f {time.perf_counter() - t_phase:.1f} s")
     return launches
@@ -1557,7 +1589,8 @@ def serve_audio(dev):
     res, launches, params, prompts = serve_main(dev, cfg, {
         "rmsnorm": 2 * ed.enc_layers + 1 + (3 * ed.dec_layers + 1) * GEN,
         "rmsnorm_bwd": 0, "flash_attention": n_attn,
-        "flash_attention_tc": n_attn, "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0},
+        "flash_attention_tc": n_attn, "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0,
+        "ssd_bwd_tc": 0},
         prompt=AUDIO_PROMPT, inputs={"frames": frames})
     again = serve.run(cfg, params, prompts, GEN, frames=frames)
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -1789,7 +1822,7 @@ def session_iteration(label, session, cfg, init, gen, dev, place, direct):
     expect = {"rmsnorm": (2 * cfg.num_layers + 1) * forwards, "rmsnorm_bwd": 0,
               "flash_attention": cfg.num_layers * prefill_runs,
               "flash_attention_tc": cfg.num_layers * prefill_runs,
-              "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0}
+              "ssd": 0, "ssd_tc": 0, "ssd_bwd": 0, "ssd_bwd_tc": 0}
     loads = {t: {k: v[k] - loads0[t][k] for k in ("hits", "bytes", "seconds")}
              for t, v in store.load_stats.items()}
     writes = {k: store.write_stats[k] - writes0[k] for k in writes0}
@@ -2127,6 +2160,12 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
     for name, us in times.most_common(12):
         print(f"  {us / 1e3:9.3f} ms {us / 1e3 / dev_ms:6.1%} "
               f"{calls[name]:6d}x  {name[:100]}")
+    bwd = [name for name in times if "ssd_bwd" in name]
+    if bwd:   # the SSD backward's kernels (both launches of a call)
+        us = sum(times[name] for name in bwd)
+        print(f"{label} step profiled: the SSD backward {us / 1e3:.3f} ms, "
+              f"{us / 1e3 / dev_ms:.1%} of device time, "
+              f"{sum(calls[name] for name in bwd)} launches")
     del params0, batch0
     torch.cuda.empty_cache()
     return launches
@@ -2159,7 +2198,7 @@ def train_ssm_path(dev):
     RMSNorm ln1 and the mixer's gated norm, 2 a layer, and the final norm,
     4L + 1; the SSD chunk kernel once a forward, 2L, all on the tensor-core
     kernel (bf16, chunk 128); the backward kernels once a layer, RMSNorm
-    2L + 1 and SSD L. The first step's loss and grad norm and every leaf's
+    2L + 1 and SSD L, all on the SSD backward's tensor-core kernel. The first step's loss and grad norm and every leaf's
     gradient are held against the plain path with the sequential oracle
     ``ssd_ref``, the floor the reference model's chunked scan. The plain
     path runs one step, not TRAIN_STEPS: the oracle's Python loop over
@@ -2172,7 +2211,7 @@ def train_ssm_path(dev):
     expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
                   rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS,
                   ssd=2 * L * TRAIN_STEPS, ssd_tc=2 * L * TRAIN_STEPS,
-                  ssd_bwd=L * TRAIN_STEPS)
+                  ssd_bwd=L * TRAIN_STEPS, ssd_bwd_tc=L * TRAIN_STEPS)
     launches = train_compare(
         dev, cfg, expect, (plain_kernels(scan="sequential"), cfg),
         (plain_kernels(scan="chunked"), cfg), _named_grads, "train mamba2",

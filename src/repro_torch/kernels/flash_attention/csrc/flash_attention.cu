@@ -393,7 +393,7 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tm_q,
                                     G::kAtomBytes, G::kLayout);
       const uint64_t db = make_desc(k_tile + cb * kBK * G::kRowBytes + 32 * w, 16,
                                     G::kAtomBytes, G::kLayout);
-      wgmma_ss_n64(sc, da, db, kk > 0);
+      wgmma_ss<64, 0, 0>(sc, da, db, kk > 0);
     }
     wgmma_commit();
     wgmma_wait_all();

@@ -196,43 +196,26 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"\
   "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
 
-// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B from shared memory, both
-// K-major
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
-                                             uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32 ", "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_D32
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// D[64 x N] (+)= A[64 x 16] * B[16 x N], A and B from shared memory, both
-// MN-major (transposed)
-__device__ __forceinline__ void wgmma_ss_tt_n64(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32 ", "
-      "%32, %33, p, 1, 1, 1, 1;\n}\n"
-      : HOPPER_D32
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-__device__ __forceinline__ void wgmma_ss_tt_n128(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64 ", "
-      "%64, %65, p, 1, 1, 1, 1;\n}\n"
-      : HOPPER_D64
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-template <int N>
-__device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t desc_a,
-                                            uint64_t desc_b, int accumulate) {
-  if constexpr (N == 64) wgmma_ss_tt_n64(d, desc_a, desc_b, accumulate);
-  else wgmma_ss_tt_n128(d, desc_a, desc_b, accumulate);
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], N 64 or 128, A and B from shared
+// memory, each K-major (kTrans 0) or MN-major (kTrans 1)
+template <int N, int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N");
+  if constexpr (N == 64)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_R32 ", "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : HOPPER_D32
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HOPPER_R64 ", "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : HOPPER_D64
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // D[64 x N] (+)= A[64 x 16] * B[16 x N], A from registers, B from shared

@@ -57,6 +57,10 @@
 // fp32, or any other shape: the CUDA-core kernel (simt::ssd_chunk_kernel),
 // whose fp32 products hold the tolerance from fp32 input (the tensor cores
 // would need 3xTF32). No serving path runs it.
+//
+// The backward has the same two routes: bwd:: (CUDA cores, fp32 or bf16)
+// and tcb:: (bf16 on the tensor cores, the split scheme above); their
+// notes are at each namespace.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -272,10 +276,10 @@ int launch(const void* x, const void* dt, const void* cs, const void* B,
 // 24, P 64, N 128, L 128, bf16 x/B/C) the call must read x, dt, cs, B, C,
 // dy and dst and write dx, ddt, dcs, dB, dC once: ~48 MB, ~14 us at 3.35
 // TB/s, against ~2.5 GFLOP of products (~2.5 us at the bf16 tensor peak).
-// This first version runs on the CUDA cores in fp32 and also writes and
-// reads each head's share of dcb (the causal half) and of dB's state term
-// through a workspace (~38 MB more at that shape); tensor cores and a
-// fused head sum are later work.
+// These kernels run on the CUDA cores in fp32 and also write and read each
+// head's share of dcb (the causal half) and of dB's state term through a
+// workspace (~38 MB more at that shape). They take fp32, and the bf16
+// shapes the tensor-core backward (namespace tcb) does not.
 //
 // Launch 1, one block of 256 threads per cell (grid (H, nc, b)), in two
 // phases over panels of TP = min(32, L) rows, products as 4 x 4 register
@@ -812,8 +816,8 @@ ssd_chunk_tc(const __grid_constant__ CUtensorMap tm_x,
     if (kt > wg) continue;
     for (int ks = 0; ks < N / 16; ++ks) {
       const uint32_t k_off = ks / 4 * G::kBlock + 32 * (ks % 4);
-      wgmma_ss_n64(cb[kt], make_desc(sC + k_off + 64 * wg * 128, 16, 1024, 1),
-                   make_desc(sB + k_off + 64 * kt * 128, 16, 1024, 1), ks > 0);
+      wgmma_ss<64, 0, 0>(cb[kt], make_desc(sC + k_off + 64 * wg * 128, 16, 1024, 1),
+                         make_desc(sB + k_off + 64 * kt * 128, 16, 1024, 1), ks > 0);
     }
   }
   wgmma_commit();
@@ -922,10 +926,10 @@ ssd_chunk_tc(const __grid_constant__ CUtensorMap tm_x,
 #pragma unroll
       for (int ks = 0; ks < L / 16; ++ks) {
         const uint64_t db = make_desc(sB + t * G::kBlock + 16 * ks * 128, G::kBlock, 1024, 1);
-        wgmma_ss_tt<PB>(sacc, db,
-                        make_desc(sXhi + 16 * ks * 128, G::kBlock, 1024, 1), ks > 0);
-        wgmma_ss_tt<PB>(sacc, db,
-                        make_desc(sXlo + 16 * ks * 128, G::kBlock, 1024, 1), 1);
+        wgmma_ss<PB, 1, 1>(sacc, db,
+                           make_desc(sXhi + 16 * ks * 128, G::kBlock, 1024, 1), ks > 0);
+        wgmma_ss<PB, 1, 1>(sacc, db,
+                           make_desc(sXlo + 16 * ks * 128, G::kBlock, 1024, 1), 1);
       }
       wgmma_commit();
       if (!y_done) {
@@ -992,6 +996,612 @@ int launch_at(const void* x, const void* dt, const void* cs, const void* B,
 
 }  // namespace tc
 
+// ============================================ backward, bf16, tensor cores
+// The backward of the chunk function (the formulas of namespace bwd, with
+// the exponent masked before the exp) for bf16 x, B, C at L 64 or 128, N
+// and P multiples of 16, N <= 128, and P <= 64 at L = 128 (P <= 128 at
+// L = 64); ops.py `bwd_route` sends those calls here. Like namespace bwd
+// it replaces no TPU kernel: the reference differentiates its plain
+// chunked scan (src/repro/models/ssd.py ssd_scan_reference) by autodiff.
+//
+// Bound on this card: bytes. At mamba2-130m's train shape (b 4, S 512, H
+// 24, P 64, N 128, L 128) the call must move ~48 MB (x, dt, cs, B, C, dy,
+// dst read once; dx, ddt, dcs, dB, dC written once): ~14.3 us at 3.35
+// TB/s, against ~6 GFLOP of split products (~6 us at the bf16 tensor peak).
+//
+// What the design does about it:
+//  * One block per (group of heads, chunk, batch row), `group` as the
+//    forward's (ops.py head_group: 3 at mamba2's train shape, 128 blocks,
+//    one wave). One warpgroup per 64 rows j; every L x L matrix is held
+//    transposed (rows j, columns i >= j), so that w^T, the A operand of
+//    dx = w^T dy, is formed in registers on the accumulator it came from.
+//  * B C^T (= (C B^T)^T) once a block, by wgmma from TMA-loaded B and C
+//    (exact: bf16 products in fp32), kept in shared memory in fragment
+//    order (each thread reads back its own 32 floats of a tile as float4s).
+//  * Per head, on the tensor cores with the forward's split-bf16 scheme
+//    (an fp32 operand is hi + lo in bf16, lo.lo dropped; x, B, C are exact):
+//    B dst (into dx's accumulator, then scaled by dte row by row), dW^T =
+//    x dy^T on the causal 64 x 64 tiles, dx += w^T dy (register A operand),
+//    and the state term x dst^T, scaled by dte after the product and added
+//    to dB's accumulator, which stays in registers across the block's heads.
+//    dy and dst arrive in fp32 as 32-byte loads and are split once into hi
+//    and lo halves in wgmma's swizzled layout; x by TMA.
+//  * On the fragments: q^T = dW^T o bc o E, w^T = bc o E o dt_j and g^T =
+//    dW^T o E o dt_j, exp taken only for i >= j (argument selected first);
+//    row sums by quad shuffles, column sums by shuffles over the 8 rows of
+//    a warp then per warp through shared memory, summed in warp order;
+//    g^T summed over the block's heads in head order in shared memory
+//    (fragment order). dx is written once.
+//  * After the last head: dcb^T as hi + lo bf16 in shared memory, dB +=
+//    dcb^T C and dC = dcb B on the tensor cores, and the block's partial dB
+//    and dC (L x N each, fp32) to a workspace of b nc groups L N 2 floats
+//    (16.8 MB at mamba2's train shape); a second launch sums the groups of
+//    each chunk in group order (no atomics: two calls give the same bits).
+//    That workspace is written and read once, ~34 MB beside the 48 MB.
+// Shared memory at L = N = 128, P = 64: ~216 KB, one block an SM.
+namespace tcb {
+
+using namespace hopper;
+using tc::split_bf16;
+using tc::store_tile;
+
+template <int L, int NB, int PB>
+struct Geom {
+  static constexpr int kWG = L / 64;                      // warpgroups: rows j
+  static constexpr int kThreads = 128 * kWG;
+  static constexpr int kTiles = kWG * (kWG + 1) / 2;      // causal 64 x 64 tiles
+  static constexpr int kRows = L * 128;                   // a column block of L rows
+  static constexpr int kBBytes = NB / 64 * kRows;         // B, and C, of the chunk
+  static constexpr int kFragBytes = kTiles * 64 * 64 * 4; // an L x L fp32 matrix
+  static constexpr int kXBytes = PB / 64 * kRows;         // x; each half of dy
+  static constexpr int kDstBytes = PB / 64 * NB * 128;    // each half of dst
+  static constexpr int kOpBytes = 3 * kXBytes + 2 * kDstBytes;
+  // cs, dt, seg, dte of two heads; ddte and the row sums of q^T; per warp
+  // column sums of q^T o dt_j, and sums of ddte o dte
+  static constexpr int kVecFloats = 10 * L + 4 * kWG * (L + 1);
+  static constexpr int kSmem = 1024 + kBBytes + 2 * kFragBytes + kOpBytes
+                               + 4 * kVecFloats + 3 * 8;
+  static_assert(L == 64 || L == 128, "chunk");
+  static_assert((NB == 64 || NB == 128) && (PB == 64 || PB == 128), "widths");
+  static_assert(L == 64 || PB == 64, "P <= 64 at L = 128");
+  static_assert(kBBytes <= kOpBytes && kBBytes <= kFragBytes, "C's places");
+  static_assert(4 * L * L <= kOpBytes, "dcb^T hi/lo in the operand region");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
+// index of tile (row band jb, column tile it >= jb) of an L x L matrix
+template <int kWG>
+__device__ __forceinline__ int tile_id(int jb, int it) {
+  return jb * kWG - jb * (jb - 1) / 2 + (it - jb);
+}
+
+// byte offset of element (r, c) in a tile of column blocks of 64 bf16 by
+// `block` / 128 rows, 128-byte swizzled
+__device__ __forceinline__ uint32_t swz(int r, int c, int block) {
+  return (c / 64) * block + r * 128 + ((((c % 64) / 8) ^ (r % 8)) << 4) + (c % 8) * 2;
+}
+
+// A head's dy (kRowsA = L rows) and dst (kRowsB = NB rows), each rows x
+// cols fp32 with row stride ld floats, into bf16 hi and lo tiles of kCols
+// columns (padded rows and columns zeros), in units of 8 floats, each
+// thread with up to 4 units in flight
+template <int kRowsA, int kRowsB, int kCols, int kThreads>
+__device__ __forceinline__ void split_two(const float* __restrict__ a, size_t lda, int rows_a,
+                                          uint8_t* hi_a, uint8_t* lo_a,
+                                          const float* __restrict__ b, size_t ldb, int rows_b,
+                                          uint8_t* hi_b, uint8_t* lo_b, int cols, int tid) {
+  constexpr int kPerRow = kCols / 8;
+  constexpr int kUnitsA = kRowsA * kPerRow;
+  constexpr int kUnits = kUnitsA + kRowsB * kPerRow;
+  constexpr int kBatch = 4;
+#pragma unroll 1
+  for (int u0 = tid; u0 < kUnits; u0 += kThreads * kBatch) {
+    float4 v[kBatch][2];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int u = u0 + k * kThreads;
+      const bool in_a = u < kUnitsA;
+      const int w = in_a ? u : u - kUnitsA;
+      const int r = w / kPerRow, c = w % kPerRow * 8;
+      v[k][0] = v[k][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (u < kUnits && r < (in_a ? rows_a : rows_b) && c < cols) {
+        const float4* p = reinterpret_cast<const float4*>(in_a ? a + r * lda + c
+                                                               : b + r * ldb + c);
+        v[k][0] = __ldg(p);
+        v[k][1] = __ldg(p + 1);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int u = u0 + k * kThreads;
+      if (u >= kUnits) continue;
+      const bool in_a = u < kUnitsA;
+      const int w = in_a ? u : u - kUnitsA;
+      const int r = w / kPerRow, c = w % kPerRow * 8;
+      const uint2 p0 = split_bf16(v[k][0].x, v[k][0].y);
+      const uint2 p1 = split_bf16(v[k][0].z, v[k][0].w);
+      const uint2 p2 = split_bf16(v[k][1].x, v[k][1].y);
+      const uint2 p3 = split_bf16(v[k][1].z, v[k][1].w);
+      const uint32_t off = swz(r, c, (in_a ? kRowsA : kRowsB) * 128);
+      *reinterpret_cast<uint4*>((in_a ? hi_a : hi_b) + off) = make_uint4(p0.x, p1.x, p2.x, p3.x);
+      *reinterpret_cast<uint4*>((in_a ? lo_a : lo_b) + off) = make_uint4(p0.y, p1.y, p2.y, p3.y);
+    }
+  }
+}
+
+// dW^T = x dy^T on causal tile (wg, it): x rows 64 wg.. and dy rows 64 it..
+// (both K-major, K = p), dy as hi + lo; issued and committed
+template <int kRows>
+__device__ __forceinline__ void issue_dw(float (&dw)[32], uint32_t sX, uint32_t sDyHi,
+                                         uint32_t sDyLo, int wg, int it, int P) {
+  for (int ks = 0; ks < P / 16; ++ks) {
+    const uint32_t k_off = ks / 4 * kRows + 32 * (ks % 4);
+    const uint64_t da = make_desc(sX + k_off + 64 * wg * 128, 16, 1024, 1);
+    wgmma_ss<64, 0, 0>(dw, da, make_desc(sDyHi + k_off + 64 * it * 128, 16, 1024, 1), ks > 0);
+    wgmma_ss<64, 0, 0>(dw, da, make_desc(sDyLo + k_off + 64 * it * 128, 16, 1024, 1), 1);
+  }
+  wgmma_commit();
+}
+
+template <int L, int NB, int PB>
+__global__ void __launch_bounds__(Geom<L, NB, PB>::kThreads, 1)
+ssd_bwd_tc(const __grid_constant__ CUtensorMap tm_x,
+           const __grid_constant__ CUtensorMap tm_b,
+           const __grid_constant__ CUtensorMap tm_c,
+           const float* __restrict__ dt, const float* __restrict__ cs,
+           const float* __restrict__ dy, const float* __restrict__ dst,
+           float* __restrict__ dx, float* __restrict__ ddt,
+           float* __restrict__ dcs, float* __restrict__ ws, int S, int H,
+           int P, int N, int group) {
+  using G = Geom<L, NB, PB>;
+  constexpr int kWG = G::kWG;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gbase = smem_raw + (base - raw);   // the same bytes, generic
+  auto gp = [&](uint32_t a) { return gbase + (a - base); };
+  const uint32_t sB = base;
+  const uint32_t sBC = sB + G::kBBytes;       // B C^T in fragment order; C at the end
+  const uint32_t sDcb = sBC + G::kFragBytes;  // sum over heads of g^T, fragment order
+  const uint32_t sOp = sDcb + G::kFragBytes;  // C at the start; then per head:
+  const uint32_t sX = sOp;                    //   x
+  const uint32_t sDyHi = sX + G::kXBytes;     //   dy, hi and lo
+  const uint32_t sDyLo = sDyHi + G::kXBytes;
+  const uint32_t sDstHi = sDyLo + G::kXBytes; //   dst, hi and lo
+  const uint32_t sDstLo = sDstHi + G::kDstBytes;
+  const uint32_t sDh = sOp;                   // at the end: dcb^T hi and lo
+  const uint32_t sDl = sOp + 2 * L * L;
+  float* const sVec = reinterpret_cast<float*>(gp(sOp + G::kOpBytes));
+  // head g's cs, dt, seg, dte at sVec + 4 L (g % 2), L each
+  float* const sDdte = sVec + 8 * L;
+  float* const sRowQ = sDdte + L;
+  float* const sCol = sRowQ + L;              // (4 kWG warps) x L
+  float* const sWarp = sCol + 4 * kWG * L;    // 4 kWG warps
+  const uint32_t bc_bar = smem_u32(sVec + G::kVecFloats);
+  const uint32_t x_bar = bc_bar + 8;
+  const uint32_t c_bar = x_bar + 8;
+  float4* const frag_bc = reinterpret_cast<float4*>(gp(sBC));
+  float4* const frag_dcb = reinterpret_cast<float4*>(gp(sDcb));
+
+  const int h0 = blockIdx.x * group;
+  const int nh = min(group, H - h0);
+  const int c = blockIdx.y, b = blockIdx.z;
+  const int nc = S / L;
+  const size_t row0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = tid / 128, t = tid % 128;     // rows j 64 wg .. 64 wg + 63
+  const int r_a = 64 * wg + 16 * (warp % 4) + lane / 4;   // this thread's rows
+  const int r_b = r_a + 8;
+  const int col = 2 * (lane % 4);              // + 8 k (+ 1)
+
+  if (tid == 0) {
+    mbar_init(bc_bar, 1);
+    mbar_init(x_bar, 1);
+    mbar_init(c_bar, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bc_bar, 2 * G::kBBytes);
+#pragma unroll
+    for (int k = 0; k < NB / 64; ++k) {
+      tma_load(sB + k * G::kRows, &tm_b, bc_bar, 64 * k, c * L, b);
+      tma_load(sOp + k * G::kRows, &tm_c, bc_bar, 64 * k, c * L, b);
+    }
+  }
+  __syncthreads();
+
+  // B C^T: this warpgroup's tiles (rows j of B, columns i of C), K = n
+  mbar_wait(bc_bar, 0);
+  for (int it = wg; it < kWG; ++it) {
+    float acc[32];
+    fence_regs(acc);
+    wgmma_fence();
+    for (int ks = 0; ks < N / 16; ++ks) {
+      const uint32_t k_off = ks / 4 * G::kRows + 32 * (ks % 4);
+      wgmma_ss<64, 0, 0>(acc, make_desc(sB + k_off + 64 * wg * 128, 16, 1024, 1),
+                         make_desc(sOp + k_off + 64 * it * 128, 16, 1024, 1), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    float4* f = frag_bc + tile_id<kWG>(wg, it) * 8 * 128 + t;
+#pragma unroll
+    for (int r4 = 0; r4 < 8; ++r4)
+      f[r4 * 128] = make_float4(acc[4 * r4], acc[4 * r4 + 1], acc[4 * r4 + 2], acc[4 * r4 + 3]);
+  }
+
+  float st[NB / 2];   // dB rows j: the heads' state terms, then + dcb^T C
+#pragma unroll
+  for (int k = 0; k < NB / 2; ++k) st[k] = 0.f;
+  const float kNegInf = -__int_as_float(0x7f800000);
+
+  // head g's x (TMA), its cs, dt, seg and dte, its dy and dst split
+  auto load_head = [&](int g) {
+    const int h = h0 + g;
+    const size_t cell = (static_cast<size_t>(b) * nc + c) * H + h;
+    if (tid == 0) {
+      mbar_expect_tx(x_bar, G::kXBytes);
+#pragma unroll
+      for (int k = 0; k < PB / 64; ++k)
+        tma_load(sX + k * G::kRows, &tm_x, x_bar, 64 * k, h, c * L, b);
+    }
+    float* const v = sVec + 4 * L * (g % 2);
+    for (int l = tid; l < L; l += G::kThreads) {
+      const float cl = cs[(row0 + l) * H + h];
+      const float dl = dt[(row0 + l) * H + h];
+      const float sg = __expf(cs[(row0 + L - 1) * H + h] - cl);
+      v[l] = cl;
+      v[L + l] = dl;
+      v[2 * L + l] = sg;
+      v[3 * L + l] = dl * sg;
+    }
+    split_two<L, NB, PB, G::kThreads>(
+        dy + (row0 * H + h) * P, static_cast<size_t>(H) * P, L, gp(sDyHi), gp(sDyLo),
+        dst + cell * N * P, P, N, gp(sDstHi), gp(sDstLo), P, tid);
+  };
+  __syncthreads();   // every warpgroup's B C^T is done with C
+  load_head(0);
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int g = 0; g < nh; ++g) {
+    const int h = h0 + g;
+    const float* const sCs = sVec + 4 * L * (g % 2);
+    const float* const sDt = sCs + L;
+    const float* const sSeg = sDt + L;
+    const float* const sDte = sSeg + L;
+    mbar_wait(x_bar, g & 1);
+
+    // 1. dx = dte o (B dst) on this warpgroup's rows; ddte = x . (B dst)
+    float dxa[PB / 2];
+    fence_regs(dxa);
+    wgmma_fence();
+    for (int ks = 0; ks < N / 16; ++ks) {
+      const uint32_t k_off = ks / 4 * G::kRows + 32 * (ks % 4);
+      const uint64_t da = make_desc(sB + k_off + 64 * wg * 128, 16, 1024, 1);
+      wgmma_ss<PB, 0, 1>(dxa, da, make_desc(sDstHi + 16 * ks * 128, NB * 128, 1024, 1), ks > 0);
+      wgmma_ss<PB, 0, 1>(dxa, da, make_desc(sDstLo + 16 * ks * 128, NB * 128, 1024, 1), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dxa);
+    {
+      float s_a = 0.f, s_b = 0.f;
+#pragma unroll
+      for (int k = 0; k < PB / 8; ++k) {
+        const int p = 8 * k + col;
+        const float2 xa = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gp(sX) + swz(r_a, p, G::kRows)));
+        const float2 xb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(gp(sX) + swz(r_b, p, G::kRows)));
+        s_a = fmaf(dxa[4 * k], xa.x, fmaf(dxa[4 * k + 1], xa.y, s_a));
+        s_b = fmaf(dxa[4 * k + 2], xb.x, fmaf(dxa[4 * k + 3], xb.y, s_b));
+      }
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, 1);
+      s_a += __shfl_xor_sync(0xffffffffu, s_a, 2);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, 1);
+      s_b += __shfl_xor_sync(0xffffffffu, s_b, 2);
+      const float de_a = sDte[r_a], de_b = sDte[r_b];
+      // this warp's share of sum_l ddte_l dte_l (the chunk end's dcs term)
+      float e = fmaf(s_a, de_a, s_b * de_b);
+#pragma unroll
+      for (int m = 4; m < 32; m *= 2) e += __shfl_xor_sync(0xffffffffu, e, m);
+      if (lane % 4 == 0) {
+        sDdte[r_a] = s_a;
+        sDdte[r_b] = s_b;
+      }
+      if (lane == 0) sWarp[warp] = e;
+#pragma unroll
+      for (int k = 0; k < PB / 8; ++k) {
+        dxa[4 * k] *= de_a;
+        dxa[4 * k + 1] *= de_a;
+        dxa[4 * k + 2] *= de_b;
+        dxa[4 * k + 3] *= de_b;
+      }
+    }
+
+    // 2. per causal tile (rows j of this warpgroup, columns i >= j):
+    //    dW^T = x dy^T, then q^T, w^T, g^T on the fragment, dx += w^T dy
+    const float cs_a = sCs[r_a], cs_b = sCs[r_b];
+    const float dt_a = sDt[r_a], dt_b = sDt[r_b];
+    float rq_a = 0.f, rq_b = 0.f;   // row sums of q^T
+    for (int it = wg; it < kWG; ++it) {
+      float dw[32];
+      fence_regs(dw);
+      wgmma_fence();
+      issue_dw<G::kRows>(dw, sX, sDyHi, sDyLo, wg, it, P);
+      wgmma_wait_all();
+      fence_regs(dw);
+
+      const int tile = tile_id<kWG>(wg, it);
+      const float4* fbc = frag_bc + tile * 8 * 128 + t;
+      float4* fdcb = frag_dcb + tile * 8 * 128 + t;
+      uint32_t w_hi[4][4], w_lo[4][4];
+#pragma unroll
+      for (int r4 = 0; r4 < 8; ++r4) {
+        const float4 b4 = fbc[r4 * 128];
+        const float bc[4] = {b4.x, b4.y, b4.z, b4.w};
+        const int i0 = 64 * it + 8 * r4 + col;
+        const float cs_i[2] = {sCs[i0], sCs[i0 + 1]};
+        float w[4], gg[4], qd[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool upper = k < 2;        // row r_a, else r_b
+          const int j = upper ? r_a : r_b;
+          const int i = i0 + (k & 1);
+          const float dtj = upper ? dt_a : dt_b;
+          const float arg = i >= j ? cs_i[k & 1] - (upper ? cs_a : cs_b) : kNegInf;
+          const float e = __expf(arg);
+          const float bce = bc[k] * e;
+          const float q = dw[4 * r4 + k] * bce;
+          w[k] = bce * dtj;
+          gg[k] = dw[4 * r4 + k] * e * dtj;
+          qd[k] = q * dtj;
+          if (upper) rq_a += q;
+          else rq_b += q;
+        }
+        // column sums of q^T o dt_j over this warp's 16 rows j
+        float c0 = qd[0] + qd[2], c1 = qd[1] + qd[3];
+#pragma unroll
+        for (int m = 4; m < 32; m *= 2) {
+          c0 += __shfl_xor_sync(0xffffffffu, c0, m);
+          c1 += __shfl_xor_sync(0xffffffffu, c1, m);
+        }
+        if (lane < 4) {
+          sCol[warp * L + i0] = c0;
+          sCol[warp * L + i0 + 1] = c1;
+        }
+        const float4 d4 = g == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : fdcb[r4 * 128];
+        fdcb[r4 * 128] = make_float4(d4.x + gg[0], d4.y + gg[1], d4.z + gg[2], d4.w + gg[3]);
+        const uint2 pa = split_bf16(w[0], w[1]), pb = split_bf16(w[2], w[3]);
+        w_hi[r4 / 2][2 * (r4 % 2)] = pa.x;
+        w_hi[r4 / 2][2 * (r4 % 2) + 1] = pb.x;
+        w_lo[r4 / 2][2 * (r4 % 2)] = pa.y;
+        w_lo[r4 / 2][2 * (r4 % 2) + 1] = pb.y;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(w_hi[kk]);
+        fence_regs(w_lo[kk]);
+      }
+      fence_regs(dxa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t off = (64 * it + 16 * kk) * 128;
+        const uint64_t dh = make_desc(sDyHi + off, G::kRows, 1024, 1);
+        const uint64_t dl = make_desc(sDyLo + off, G::kRows, 1024, 1);
+        wgmma_rs<PB>(dxa, w_hi[kk], dh);
+        wgmma_rs<PB>(dxa, w_hi[kk], dl);
+        wgmma_rs<PB>(dxa, w_lo[kk], dh);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dxa);
+    }
+
+    // 3. the state term (x o dte) dst^T = diag(dte) x dst^T into dB's rows,
+    //    issued before dx is stored
+    float sa[NB / 2];
+    fence_regs(sa);
+    wgmma_fence();
+    for (int ks = 0; ks < P / 16; ++ks) {
+      const uint64_t da = make_desc(sX + ks / 4 * G::kRows + 32 * (ks % 4) + 64 * wg * 128,
+                                    16, 1024, 1);
+      const uint32_t d_off = ks / 4 * (NB * 128) + 32 * (ks % 4);
+      wgmma_ss<NB, 0, 0>(sa, da, make_desc(sDstHi + d_off, 16, 1024, 1), ks > 0);
+      wgmma_ss<NB, 0, 0>(sa, da, make_desc(sDstLo + d_off, 16, 1024, 1), 1);
+    }
+    wgmma_commit();
+    rq_a += __shfl_xor_sync(0xffffffffu, rq_a, 1);
+    rq_a += __shfl_xor_sync(0xffffffffu, rq_a, 2);
+    rq_b += __shfl_xor_sync(0xffffffffu, rq_b, 1);
+    rq_b += __shfl_xor_sync(0xffffffffu, rq_b, 2);
+    if (lane % 4 == 0) {
+      sRowQ[r_a] = rq_a;
+      sRowQ[r_b] = rq_b;
+    }
+    store_tile<PB>(dxa, dx + ((row0 + 64 * wg) * H + h) * P, static_cast<size_t>(H) * P,
+                   64, P);
+    wgmma_wait<0>();
+    fence_regs(sa);
+    {
+      const float de_a = sDte[r_a], de_b = sDte[r_b];
+#pragma unroll
+      for (int k = 0; k < NB / 8; ++k) {
+        st[4 * k] = fmaf(sa[4 * k], de_a, st[4 * k]);
+        st[4 * k + 1] = fmaf(sa[4 * k + 1], de_a, st[4 * k + 1]);
+        st[4 * k + 2] = fmaf(sa[4 * k + 2], de_b, st[4 * k + 2]);
+        st[4 * k + 3] = fmaf(sa[4 * k + 3], de_b, st[4 * k + 3]);
+      }
+    }
+
+    // 4. the next head's operands, then this head's ddt and dcs, a thread
+    //    a row
+    fence_proxy_async();
+    __syncthreads();   // every row and column sum is in; x, dy, dst are free
+    if (g + 1 < nh) load_head(g + 1);
+    for (int l = tid; l < L; l += G::kThreads) {
+      float cols = 0.f;                          // warps of bands <= l's tile
+      for (int w = 0; w < 4 * (l / 64 + 1); ++w) cols += sCol[w * L + l];
+      const float rq = sRowQ[l], dd = sDdte[l];
+      ddt[(row0 + l) * H + h] = rq + dd * sSeg[l];
+      float v = cols - sDt[l] * rq - dd * sDte[l];
+      if (l == L - 1)                            // the chunk end's share
+        for (int w = 0; w < 4 * kWG; ++w) v += sWarp[w];
+      dcs[(row0 + l) * H + h] = v;
+    }
+    fence_proxy_async();
+    __syncthreads();   // the sums are read; the next head's operands are in
+  }
+
+  // 5. dcb^T as bf16 hi + lo (rows j, columns i); C into B C^T's place
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(c_bar, G::kBBytes);
+#pragma unroll
+    for (int k = 0; k < NB / 64; ++k)
+      tma_load(sBC + k * G::kRows, &tm_c, c_bar, 64 * k, c * L, b);
+  }
+  for (int it = wg; it < kWG; ++it) {
+    const float4* f = frag_dcb + tile_id<kWG>(wg, it) * 8 * 128 + t;
+#pragma unroll
+    for (int r4 = 0; r4 < 8; ++r4) {
+      const float4 v = f[r4 * 128];
+      const int i = 64 * it + 8 * r4 + col;
+      const uint2 pa = split_bf16(v.x, v.y), pb = split_bf16(v.z, v.w);
+      *reinterpret_cast<uint32_t*>(gp(sDh) + swz(r_a, i, G::kRows)) = pa.x;
+      *reinterpret_cast<uint32_t*>(gp(sDl) + swz(r_a, i, G::kRows)) = pa.y;
+      *reinterpret_cast<uint32_t*>(gp(sDh) + swz(r_b, i, G::kRows)) = pb.x;
+      *reinterpret_cast<uint32_t*>(gp(sDl) + swz(r_b, i, G::kRows)) = pb.y;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  mbar_wait(c_bar, 0);
+
+  // 6. dB rows j += dcb^T C (K = i >= 64 wg); dC rows i = dcb B (K = j <= i)
+  fence_regs(st);
+  wgmma_fence();
+  for (int ks = 4 * wg; ks < L / 16; ++ks) {
+    const uint32_t k_off = ks / 4 * G::kRows + 32 * (ks % 4) + 64 * wg * 128;
+    const uint64_t dc = make_desc(sBC + 16 * ks * 128, G::kRows, 1024, 1);
+    wgmma_ss<NB, 0, 1>(st, make_desc(sDh + k_off, 16, 1024, 1), dc, 1);
+    wgmma_ss<NB, 0, 1>(st, make_desc(sDl + k_off, 16, 1024, 1), dc, 1);
+  }
+  wgmma_commit();
+  float dca[NB / 2];
+  fence_regs(dca);
+  wgmma_fence();
+  for (int ks = 0; ks < 4 * (wg + 1); ++ks) {
+    const uint32_t a_off = wg * G::kRows + 16 * ks * 128;
+    const uint64_t db = make_desc(sB + 16 * ks * 128, G::kRows, 1024, 1);
+    wgmma_ss<NB, 1, 1>(dca, make_desc(sDh + a_off, G::kRows, 1024, 1), db, ks > 0);
+    wgmma_ss<NB, 1, 1>(dca, make_desc(sDl + a_off, G::kRows, 1024, 1), db, 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(st);
+  fence_regs(dca);
+  // the block's partials: ws (2, b, nc, groups, L, N)
+  const size_t slab = (static_cast<size_t>(b) * nc + c) * gridDim.x + blockIdx.x;
+  const size_t half = static_cast<size_t>(gridDim.z) * nc * gridDim.x * L * N;
+  store_tile<NB>(st, ws + (slab * L + 64 * wg) * N, N, 64, N);
+  store_tile<NB>(dca, ws + half + (slab * L + 64 * wg) * N, N, 64, N);
+}
+
+// dB and dC: each chunk's group partials summed in group order, 4 floats
+// a thread
+__global__ void __launch_bounds__(256)
+ssd_bwd_tc_sum(const float4* __restrict__ ws, float4* __restrict__ dB,
+               float4* __restrict__ dC, int batch, int S, int N, int L, int groups) {
+  const size_t n4 = N / 4;
+  const size_t total = static_cast<size_t>(batch) * S * n4;   // float4s an output
+  const size_t half = total * groups;
+  const size_t stride = static_cast<size_t>(L) * n4;
+  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; e < 2 * total;
+       e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const bool is_c = e >= total;
+    const size_t u = is_c ? e - total : e;
+    const size_t row = u / n4, q = u % n4;       // row = b S + s
+    const size_t bb = row / S, s = row % S;
+    const size_t chunk = bb * (S / L) + s / L;
+    const float4* src = ws + (is_c ? half : 0) + (chunk * groups * L + s % L) * n4 + q;
+    float4 acc = src[0];
+    for (int g = 1; g < groups; ++g) {
+      const float4 v = src[g * stride];
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    (is_c ? dC : dB)[u] = acc;
+  }
+}
+
+template <int L, int NB, int PB>
+int launch(const void* x, const void* dt, const void* cs, const void* B,
+           const void* C, const void* dy, const void* dst, void* dx, void* ddt,
+           void* dcs, void* dB, void* dC, void* ws, int batch, int S, int H,
+           int P, int N, int group, cudaStream_t stream) {
+  using G = Geom<L, NB, PB>;
+  static bool configured = false;  // one attribute call per instantiation
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        ssd_bwd_tc<L, NB, PB>, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  // the forward's maps: x (P, H, S, batch), boxes of (64, 1, L, 1); B, C
+  // (N, S, batch), boxes of (64, L, 1); columns past P or N read as zeros
+  const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(P), static_cast<cuuint64_t>(H),
+                                static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t x_strides[3] = {2ull * P, 2ull * P * H, 2ull * P * H * S};
+  const cuuint32_t x_box[4] = {64u, 1u, static_cast<cuuint32_t>(L), 1u};
+  const cuuint64_t bc_dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(S),
+                                 static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bc_strides[2] = {2ull * N, 2ull * N * S};
+  const cuuint32_t bc_box[3] = {64u, static_cast<cuuint32_t>(L), 1u};
+  CUtensorMap tm_x, tm_b, tm_c;
+  if (!encode_bf16(&tm_x, x, 4, x_dims, x_strides, x_box)
+      || !encode_bf16(&tm_b, B, 3, bc_dims, bc_strides, bc_box)
+      || !encode_bf16(&tm_c, C, 3, bc_dims, bc_strides, bc_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (H + group - 1) / group;
+  ssd_bwd_tc<L, NB, PB><<<dim3(groups, S / L, batch), G::kThreads, G::kSmem, stream>>>(
+      tm_x, tm_b, tm_c, static_cast<const float*>(dt), static_cast<const float*>(cs),
+      static_cast<const float*>(dy), static_cast<const float*>(dst),
+      static_cast<float*>(dx), static_cast<float*>(ddt), static_cast<float*>(dcs),
+      static_cast<float*>(ws), S, H, P, N, group);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t vecs = 2ull * batch * S * (N / 4);
+  const int blocks = static_cast<int>(vecs > 4096 * 256 ? 4096 : (vecs + 255) / 256);
+  ssd_bwd_tc_sum<<<blocks, 256, 0, stream>>>(
+      static_cast<const float4*>(ws), static_cast<float4*>(dB), static_cast<float4*>(dC),
+      batch, S, N, L, groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N pads to 64 or 128; P to 64, or to 128 at L = 64
+template <int L>
+int launch_at(const void* x, const void* dt, const void* cs, const void* B,
+              const void* C, const void* dy, const void* dst, void* dx, void* ddt,
+              void* dcs, void* dB, void* dC, void* ws, int batch, int S, int H,
+              int P, int N, int group, cudaStream_t stream) {
+#define SSD_BWD_TC_ARGS x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC, ws, batch, S, H, P, N, group, stream
+  if constexpr (L == 64) {
+    if (P > 64)
+      return N > 64 ? launch<L, 128, 128>(SSD_BWD_TC_ARGS) : launch<L, 64, 128>(SSD_BWD_TC_ARGS);
+  } else {
+    if (P > 64) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return N > 64 ? launch<L, 128, 64>(SSD_BWD_TC_ARGS) : launch<L, 64, 64>(SSD_BWD_TC_ARGS);
+#undef SSD_BWD_TC_ARGS
+}
+
+}  // namespace tcb
+
 }  // namespace
 
 extern "C" {
@@ -1048,6 +1658,28 @@ int ssd_chunk_bwd(const void* x, const void* dt, const void* cs,
                                    ws_cb, ws_b, batch, S, H, P, N, L, s)
       : bwd::launch<float>(x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC, ws_cb,
                            ws_b, batch, S, H, P, N, L, s);
+}
+
+// The tensor-core backward (namespace tcb): x, B, C bf16 and x, B, C, dy,
+// dst 16-byte aligned; L 64 or 128; N and P multiples of 16, N at most
+// 128, P at most 64 at L = 128 and 128 at L = 64; `group` heads a block;
+// ws: (2, batch, S / L, ceil(H / group), L, N) fp32, the groups' partial
+// dB and dC. Two launches on `stream`: the blocks, then the group sum.
+int ssd_chunk_bwd_tc(const void* x, const void* dt, const void* cs,
+                     const void* B, const void* C, const void* dy,
+                     const void* dst, void* dx, void* ddt, void* dcs, void* dB,
+                     void* dC, void* ws, int batch, int S, int H, int P, int N,
+                     int L, int group, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group < 1 || N % 16 || P % 16 || N > 128 || P > (L == 64 ? 128 : 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (L) {
+    case 64: return tcb::launch_at<64>(x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC, ws,
+                                       batch, S, H, P, N, group, s);
+    case 128: return tcb::launch_at<128>(x, dt, cs, B, C, dy, dst, dx, ddt, dcs, dB, dC, ws,
+                                         batch, S, H, P, N, group, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* kernel_error_string(int code) {

@@ -12,8 +12,10 @@ raises.
 dtype and shape: bf16 at the tensor-core shapes runs the tensor-core
 kernel (C Bᵀ once per block of ``head_group`` heads, products as
 split-bf16 wgmma); fp32, and every other shape, the CUDA-core kernel. It
-also holds the backward (``ssd_chunk_bwd``, CUDA cores, either dtype),
-which the TPU package does not have: ``SSDChunkFn`` pairs it with the
+also holds the backward (``ssd_chunk_bwd``), which the TPU package does
+not have, with the same two routes (``bwd_route``): bf16 at the
+tensor-core shapes (head_dim at most 64 at chunk 128) on the tensor cores,
+everything else on the CUDA cores. ``SSDChunkFn`` pairs it with the
 forward, so that gradients flow through the chunk kernel, and ``ssd``
 calls it. The cumsum, the padding and the inter-chunk scan around it are
 plain torch, which autograd differentiates.
@@ -37,7 +39,8 @@ TC_CHUNKS = (64, 128)   # the tensor-core kernel's chunk lengths
 MAX_GROUP = 8           # heads a tensor-core block takes at most
 # route -> the library's launch function
 _ENTRY = {"tc": "ssd_chunk_fwd_tc", "simt": "ssd_chunk_fwd"}
-_BWD_ENTRY = "ssd_chunk_bwd"
+# bwd_route -> the library's backward function
+_BWD_ENTRY = {"tc": "ssd_chunk_bwd_tc", "simt": "ssd_chunk_bwd"}
 
 
 def route(dtype: torch.dtype, chunk: int, d_state: int, head_dim: int) -> str:
@@ -52,6 +55,20 @@ def route(dtype: torch.dtype, chunk: int, d_state: int, head_dim: int) -> str:
     return "simt"
 
 
+def bwd_route(dtype: torch.dtype, chunk: int, d_state: int,
+              head_dim: int) -> str:
+    """Which backward takes a call: ``"tc"``, the tensor-core kernels,
+    where ``route`` sends the forward to the tensor cores and the head's
+    operands fit one block's shared memory (``head_dim`` at most 64 at
+    chunk 128, at most 128 at chunk 64); ``"simt"``, the CUDA-core
+    kernels, for everything else (fp32 among it: the split-bf16 products
+    cannot hold 1e-4 from fp32 x, B, C)."""
+    if route(dtype, chunk, d_state, head_dim) == "tc" and (
+            chunk == 64 or head_dim <= 64):
+        return "tc"
+    return "simt"
+
+
 def head_group(batch: int, n_chunks: int, heads: int, n_sms: int) -> int:
     """Heads per tensor-core block, which computes C Bᵀ once for all of
     them: the fewest that keep the grid of ``batch · n_chunks ·
@@ -61,19 +78,25 @@ def head_group(batch: int, n_chunks: int, heads: int, n_sms: int) -> int:
     return min(MAX_GROUP, -(-heads // per_cell))
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (this source's library, or a copy of it built from an
+    edited source) with its launch functions' argument types set."""
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    bwd = getattr(lib, _BWD_ENTRY)
-    bwd.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    bwd.restype = ctypes.c_int
+    for name, n_ptr in ((_BWD_ENTRY["simt"], 14), (_BWD_ENTRY["tc"], 13)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return typed(_build.load(SOURCE))
 
 
 @functools.cache
@@ -160,10 +183,15 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     """The backward of ``ssd_chunk``: the cotangents ``dy`` of y_intra
     (b,S,H,P) and ``dstates`` of the states (b,nc,H,N,P) to (dx (b,S,H,P),
     ddt, dcs (b,S,H), dB, dC (b,S,N)), all fp32 (``ssd_chunk_bwd_ref``).
-    On a CUDA tensor one call is two launches of the library: a block per
-    (head, chunk, batch row) writes dx, ddt, dcs and each head's share of
-    dB and dC into a workspace, then a block per rows of a chunk sums the
-    shares in head order (no atomics: two calls give the same bits)."""
+    On a CUDA tensor one call is two launches of the kernel ``bwd_route``
+    names, each summing dB and dC over the heads in a fixed order with no
+    atomics (two calls give the same bits). ``"tc"``: a block per group of
+    ``head_group`` heads, chunk and batch row writes dx, ddt, dcs and the
+    group's partial dB and dC (a workspace of b·nc·groups·L·N·2 floats),
+    then a second launch sums the groups. ``"simt"``: a block per (head,
+    chunk, batch row) writes each head's share of dcb and of dB's state
+    term (b·nc·H·L·(L + N) floats), then a block per rows of a chunk sums
+    them."""
     if x.device.type == "cpu":
         return ssd_chunk_bwd_ref(x, dt, cs, B, C, dy, dstates, chunk=chunk)
     _check("ssd_chunk_bwd", x, dt, cs, B, C, chunk)
@@ -187,20 +215,32 @@ def ssd_chunk_bwd(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     dC = torch.empty((bsz, S, N), **f32)
     if dx.numel() == 0:
         return dx, ddt, dcs, dB.zero_(), dC.zero_()
-    # each head's share of dcb (L x L a cell, the causal half written) and
-    # of dB's state term (L x N a cell)
-    ws_cb = torch.empty((bsz, nc, H, L, L), **f32)
-    ws_b = torch.empty((bsz, nc, H, L, N), **f32)
+    kind = bwd_route(x.dtype, L, N, P)
+    if kind == "tc":
+        if any(t.data_ptr() % 16 for t in (x, B, C, dy, dstates)):
+            raise ValueError("ssd_chunk_bwd: x, B, C, dy, dstates must be "
+                             "16-byte aligned")
+        group = head_group(bsz, nc, H, _n_sms(x.device.index))
+        # each group's partial dB and dC (L x N a chunk each)
+        ws = (torch.empty((2, bsz, nc, -(-H // group), L, N), **f32),)
+        tail = (group,)
+    else:
+        # each head's share of dcb (L x L a cell, the causal half written)
+        # and of dB's state term (L x N a cell)
+        ws = (torch.empty((bsz, nc, H, L, L), **f32),
+              torch.empty((bsz, nc, H, L, N), **f32))
+        tail = (_DTYPES[x.dtype],)
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = getattr(lib, _BWD_ENTRY)(
+    code = getattr(lib, _BWD_ENTRY[kind])(
         x.data_ptr(), dt.data_ptr(), cs.data_ptr(), B.data_ptr(),
         C.data_ptr(), dy.data_ptr(), dstates.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), dcs.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        ws_cb.data_ptr(), ws_b.data_ptr(), bsz, S, H, P, N, L,
-        _DTYPES[x.dtype], stream)
-    _build.check(lib, code, _BWD_ENTRY)
+        *(w.data_ptr() for w in ws), bsz, S, H, P, N, L, *tail, stream)
+    _build.check(lib, code, _BWD_ENTRY[kind])
     ssd.launches_bwd += 1
+    if kind == "tc":
+        ssd.launches_bwd_tc += 1
     return dx, ddt, dcs, dB, dC
 
 
@@ -276,3 +316,4 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, B: torch.Tensor,
 ssd.launches = 0      # chunk-kernel launches (in ssd_chunk) since last set to 0
 ssd.launches_tc = 0   # of those, the bf16 tensor-core kernel's
 ssd.launches_bwd = 0  # ssd_chunk_bwd calls (two launches each) on CUDA tensors
+ssd.launches_bwd_tc = 0   # of those, the bf16 tensor-core backward's

@@ -881,11 +881,17 @@ def test_ssd_bwd_kernel_matches_plain_and_repeats_bitwise(cuda, case, dtype):
     L = case[-1]
     args = _ssd_bwd_inputs(case, dtype, torch.Generator(device=cuda).manual_seed(9),
                            cuda)
-    before = tssd_ops.ssd.launches_bwd
+    shape = (getattr(torch, dtype), L, case[4], case[3])
+    tc = tssd_ops.bwd_route(*shape) == "tc"
+    # every case the forward sends to the tensor cores sends its backward
+    # there too (none has a head wider than 64 at chunk 128)
+    assert tc == (tssd_ops.route(*shape) == "tc")
+    before = (tssd_ops.ssd.launches_bwd, tssd_ops.ssd.launches_bwd_tc)
     got = tssd_ops.ssd_chunk_bwd(*args, chunk=L)
     again = tssd_ops.ssd_chunk_bwd(*args, chunk=L)
     torch.cuda.synchronize()
-    assert tssd_ops.ssd.launches_bwd == before + 2
+    assert (tssd_ops.ssd.launches_bwd, tssd_ops.ssd.launches_bwd_tc) == (
+        before[0] + 2, before[1] + 2 * tc)
     want = tssd_ref.ssd_chunk_bwd_ref(*args, chunk=L)
     for name, o, w, o2 in zip(("dx", "ddt", "dcs", "dB", "dC"), got, want, again):
         assert o.dtype == torch.float32 and o.shape == w.shape, name
@@ -893,6 +899,28 @@ def test_ssd_bwd_kernel_matches_plain_and_repeats_bitwise(cuda, case, dtype):
         torch.testing.assert_close(o, w, rtol=0,
                                    atol=1e-4 * float(w.abs().max()), msg=name)
         assert torch.equal(o, o2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["x", "B", "C"])
+def test_ssd_bwd_tensor_core_kernel_raises_on_a_misaligned_operand(cuda, operand):
+    """A bf16 operand 2 bytes off a 16-byte boundary (a view one element
+    into its storage): the tensor-core backward, whose TMA maps need the
+    alignment, raises rather than taking the CUDA-core kernels."""
+    case = (1, 256, 4, 64, 16, 128)
+    args = list(_ssd_bwd_inputs(case, "bfloat16",
+                                torch.Generator(device=cuda).manual_seed(11), cuda))
+    k = {"x": 0, "B": 3, "C": 4}[operand]
+    t = args[k]
+    off = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    args[k] = off
+    assert tssd_ops.bwd_route(torch.bfloat16, 128, 16, 64) == "tc"
+    before = (tssd_ops.ssd.launches_bwd, tssd_ops.ssd.launches_bwd_tc)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tssd_ops.ssd_chunk_bwd(*args, chunk=128)
+    assert (tssd_ops.ssd.launches_bwd, tssd_ops.ssd.launches_bwd_tc) == before
 
 
 @pytest.mark.cuda
@@ -912,12 +940,14 @@ def test_ssd_gradients_on_the_card_flow_through_the_backward_kernel(cuda):
     for dev in ("cpu", "cuda"):
         leaves = [t.detach().to(dev).requires_grad_()
                   for t in (x, dt, a, Bm, Cm, h0)]
-        before = (tssd_ops.ssd.launches, tssd_ops.ssd.launches_bwd)
+        before = (tssd_ops.ssd.launches, tssd_ops.ssd.launches_bwd,
+                  tssd_ops.ssd.launches_bwd_tc)
         y, h = tssd_ops.ssd(*leaves[:5], chunk=128, h0=leaves[5])
         grads[dev] = torch.autograd.grad((y, h), leaves, (gy.to(dev), gh.to(dev)))
-        if dev == "cuda":
-            assert (tssd_ops.ssd.launches, tssd_ops.ssd.launches_bwd) == (
-                before[0] + 1, before[1] + 1)
+        if dev == "cuda":   # the backward on the tensor cores (bf16, chunk 128)
+            assert (tssd_ops.ssd.launches, tssd_ops.ssd.launches_bwd,
+                    tssd_ops.ssd.launches_bwd_tc) == (
+                before[0] + 1, before[1] + 1, before[2] + 1)
     for name, c, k in zip(("x", "dt", "a", "B", "C", "h0"), grads["cpu"],
                           grads["cuda"]):
         assert c.dtype == k.dtype, name

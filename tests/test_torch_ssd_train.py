@@ -176,6 +176,146 @@ def test_ssd_chunk_fn_returns_gradients_in_the_inputs_dtypes():
     assert torch.equal(y, want[0]) and torch.equal(st, want[1])
 
 
+# ------------------------------------- the tensor-core backward's plan
+def test_ssd_bwd_route_sends_the_train_shapes_to_the_tensor_cores():
+    """``bwd_route``: bf16 where the forward takes the tensor cores, but
+    head_dim at most 64 at chunk 128 (a wider head's operands do not fit
+    one block's shared memory there); fp32 and every other shape on the
+    CUDA cores."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert tssd_ops.bwd_route(bf, 128, 128, 64) == "tc"     # mamba2's train shape
+    assert tssd_ops.bwd_route(bf, 128, 16, 64) == "tc"      # jamba's
+    assert tssd_ops.bwd_route(bf, 128, 48, 32) == "tc"      # N, P padded
+    assert tssd_ops.bwd_route(bf, 64, 32, 128) == "tc"      # P 128 at L 64
+    assert tssd_ops.bwd_route(bf, 64, 96, 80) == "tc"
+    assert tssd_ops.bwd_route(bf, 128, 64, 128) == "simt"   # P 128 at L 128
+    assert tssd_ops.bwd_route(bf, 128, 128, 80) == "simt"
+    assert tssd_ops.bwd_route(f32, 128, 128, 64) == "simt"  # fp32 input
+    assert tssd_ops.bwd_route(bf, 8, 16, 16) == "simt"      # reduced mamba2
+    assert tssd_ops.bwd_route(bf, 32, 16, 32) == "simt"
+    assert tssd_ops.bwd_route(bf, 128, 24, 64) == "simt"    # N not a multiple of 16
+    for dtype in (bf, f32):
+        for L in (8, 16, 32, 64, 128):
+            for N in (8, 16, 24, 32, 64, 128):
+                for P in (8, 16, 32, 64, 80, 128):
+                    if tssd_ops.bwd_route(dtype, L, N, P) == "tc":
+                        assert tssd_ops.route(dtype, L, N, P) == "tc"
+
+
+def _split(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """An fp32 operand as the kernel feeds it to the tensor cores: bf16
+    hi + lo (each held in fp32)."""
+    hi = a.bfloat16().float()
+    return hi, (a - hi).bfloat16().float()
+
+
+def _tc_mm(a, b, exact_a=False, exact_b=False, lo=True):
+    """a @ b as the tensor-core backward takes it: a bf16 operand (x, B, C)
+    exact, an fp32 one split into hi + lo with lo·lo dropped; every product
+    of two bf16 values is exact in fp32, summed in fp32. ``lo=False`` keeps
+    the hi halves only (plain bf16 products)."""
+    ah, al = (a, None) if exact_a else _split(a)
+    bh, bl = (b, None) if exact_b else _split(b)
+    out = ah @ bh
+    if lo and bl is not None:
+        out = out + ah @ bl
+    if lo and al is not None:
+        out = out + al @ bh
+    return out
+
+
+def _tc_bwd_cell(x, dt, cs, Bm, Cm, dy, dst, lo=True):
+    """The tensor-core backward's arithmetic at one (batch row, chunk):
+    x, dy (L, H, P), dt, cs (L, H), B, C (L, N), dst (H, N, P), every L x L
+    matrix held transposed (rows j, columns i >= j) as the kernel holds it;
+    returns dx (L, H, P), ddt, dcs (L, H), dB, dC (L, N)."""
+    L, H, P = x.shape
+    causal = torch.ones(L, L, dtype=torch.bool).triu()     # [j, i]: i >= j
+    bc = Bm @ Cm.T                                          # B Cᵀ, exact
+    dB = torch.zeros(L, Bm.shape[1])
+    dcb = torch.zeros(L, L)
+    dx, ddt, dcs = torch.empty(L, H, P), torch.empty(L, H), torch.empty(L, H)
+    for h in range(H):
+        c, d = cs[:, h], dt[:, h]
+        seg = torch.exp(c[-1] - c)
+        dte = d * seg
+        e = torch.exp(torch.where(causal, c[None, :] - c[:, None],
+                                  float("-inf")))           # E_ij at [j, i]
+        bdst = _tc_mm(Bm, dst[h], exact_a=True, lo=lo)
+        ddte = (x[:, h] * bdst).sum(1)
+        dw = _tc_mm(x[:, h], dy[:, h].T, exact_a=True, lo=lo)   # dWᵀ = x dyᵀ
+        q = dw * bc * e
+        w = bc * e * d[:, None]
+        dx[:, h] = dte[:, None] * bdst + _tc_mm(w, dy[:, h], lo=lo)
+        rq = q.sum(1)
+        ddt[:, h] = rq + ddte * seg
+        dcs[:, h] = (q * d[:, None]).sum(0) - d * rq - ddte * dte
+        dcs[-1, h] += (ddte * dte).sum()
+        dB += dte[:, None] * _tc_mm(x[:, h], dst[h].T, exact_a=True, lo=lo)
+        dcb += dw * e * d[:, None]
+    dB += _tc_mm(dcb, Cm, exact_b=True, lo=lo)
+    dC = _tc_mm(dcb.T, Bm, exact_b=True, lo=lo)
+    return dx, ddt, dcs, dB, dC
+
+
+def test_the_parts_cut_from_the_tensor_core_backward_find_their_places():
+    """``launch/ssd_bwd_parts.py`` times the tensor-core backward with parts
+    cut out of a copy of ``ssd.cu``: each cut still finds its text, once,
+    inside the tensor-core backward, and changes nothing else."""
+    from repro_torch.launch import ssd_bwd_parts as parts
+    src = open(tssd_ops.SOURCE).read()
+    start, end = src.index("namespace tcb {"), src.index("}  // namespace tcb")
+    cuts = parts._cut_sources()
+    assert list(cuts) == list(parts.CUTS)
+    for name, text in cuts.items():
+        for old, new in parts.CUTS[name]:
+            assert src.count(old) == 1 and start < src.index(old) < end, name
+            assert text.count(old) == (old in new), name
+        assert text[:start] == src[:start], name
+        assert text[-(len(src) - end):] == src[end:], name
+
+
+@pytest.mark.parametrize("heads,d_state", [(24, 128), (128, 16)],
+                         ids=["mamba2", "jamba"])
+def test_tensor_core_backward_precision_plan_holds_the_bound(heads, d_state):
+    """Split-bf16 products (lo·lo dropped, fp32 sums) at one (batch row,
+    chunk) of mamba2's train cell (24 heads, P 64, N 128, L 128) and of
+    jamba's (128 heads, N 16): every output within SSD_TOL = 1e-4 of its
+    max |ref| of ``ssd_chunk_bwd_ref``, on inputs drawn as
+    ``chip_smoke.ssd_inputs`` draws them (cs reaches ~ -240). Plain bf16
+    products (the hi halves only) miss the bound, so the lo terms are
+    needed."""
+    L, P, tol = 128, 64, 1e-4
+    rng = np.random.default_rng(27)
+    f = np.float32
+    bf16 = lambda a: torch.from_numpy(a).bfloat16().float()   # noqa: E731
+    x = bf16(rng.standard_normal((L, heads, P)).astype(f))
+    dt = torch.from_numpy(np.log1p(np.exp(
+        0.55 * rng.standard_normal((L, heads)))).astype(f))
+    Bm = bf16((0.5 * rng.standard_normal((L, d_state))).astype(f))
+    Cm = bf16((0.5 * rng.standard_normal((L, d_state))).astype(f))
+    dy = torch.from_numpy(rng.standard_normal((L, heads, P)).astype(f))
+    dst = torch.from_numpy(rng.standard_normal((heads, d_state, P)).astype(f))
+    cs = torch.cumsum(dt * -np.e, 0)
+    assert float(cs[-1].max()) < -150
+    want = tssd_ref.ssd_chunk_bwd_ref(
+        x[None], dt[None], cs[None], Bm[None], Cm[None], dy[None],
+        dst[None, None], chunk=L)
+    names = ("dx", "ddt", "dcs", "dB", "dC")
+    for lo in (True, False):
+        got = _tc_bwd_cell(x, dt, cs, Bm, Cm, dy, dst, lo=lo)
+        errs = {k: rel_err(w[0], g) for k, w, g in zip(names, want, got)}
+        worst = max(errs.values())
+        print(f"{'split' if lo else 'plain'} bf16 products, {heads} heads, "
+              f"N {d_state}: " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; the bound {tol:g} is {tol / worst:.1f}x the worst")
+        if lo:
+            assert all(np.isfinite(list(errs.values())))
+            assert worst <= tol, errs
+        else:
+            assert worst > tol, errs
+
+
 # ---------------------------------------------- the wrapper vs the reference
 @pytest.mark.parametrize("chunk", [8, 32, 128])
 def test_ssd_gradients_match_reference_sequential_oracle(chunk):
@@ -437,7 +577,8 @@ def test_require_trainable_admits_the_ssm_family_only_of_the_new_ones():
 def test_cpu_training_counts_no_kernel_launch(mamba):
     _, tcfg, _, tparams = mamba
     counts = [(tssd_ops.ssd, "launches"), (tssd_ops.ssd, "launches_tc"),
-              (tssd_ops.ssd, "launches_bwd"), (rn_ops.rmsnorm, "launches"),
+              (tssd_ops.ssd, "launches_bwd"), (tssd_ops.ssd, "launches_bwd_tc"),
+              (rn_ops.rmsnorm, "launches"),
               (rn_ops.rmsnorm_bwd, "launches")]
     before = [getattr(w, a) for w, a in counts]
     state = tsteps.TrainState(params=tparams, opt=tsteps.adamw.init(tparams))
