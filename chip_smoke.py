@@ -121,6 +121,28 @@ Phases (any failure exits non-zero; none is caught and passed over):
      RMSNorm kernels as in phase 6, exact counts; every leaf's gradient
      held against the plain path with the sequential oracle, the floor
      the reference model's chunked scan;
+  6c. the MoE family trains: granite-moe-1b-a400m at full width and depth
+     (24 layers, d_model 1024, 32 experts top 8, capacity factor 1.25)
+     through the trainer's step loop as in phase 6, RMSNorm's two kernels
+     with exact counts; the routing of every (microbatch, layer) recorded
+     by layer, each recompute in the backward held to its forward's picks;
+     the plain path and the floor run on the main path's picks, every
+     leaf's gradient (router, experts, norms, attention, embeddings) held
+     against the plain path's, each path's routing of the first batch on
+     its own printed beside; the first batch's gradients twice through the
+     kernels, bitwise equal; the dropped share, and the load per expert
+     at the first and last MoE layer beside what the same routers make of
+     Gaussian rows (``expert_load``). Then qwen2-moe-a2.7b at
+     ``configs.reduced`` (its full size does not fit with fp32 moments)
+     at capacity factor 1.25: 3 steps on the card with exact counts, the
+     same on the CPU on the card's picks (loss, aux loss and grad norm a
+     step, every leaf's gradient of the first batch), the card's
+     gradients twice bitwise;
+  6d. the hybrid family trains: jamba-v0.1-52b at ``configs.reduced`` (8
+     layers in 2 groups of 4, one checkpoint a group, grad_accum 4; a
+     group at full width does not fit), held as phase 6c holds granite,
+     with the SSD forward and backward on their CUDA-core kernels (chunk
+     8), the plain path on the reference model's chunked scan;
   7. the LM workflow in a Helix session (``launch.bench_tier`` on the card:
      cold, warm, then an ``LI`` edit of ``peak_lr``), each iteration's
      counts matching the states the planner chose (a reused ``train``
@@ -303,6 +325,10 @@ ROUTING_DISAGREE_MAX = 0.5
 TRAIN_STEPS, TRAIN_LR, TRAIN_TOTAL = 3, 3e-3, 300   # the trainer's defaults
 LOSS_REL_TOL = 1e-2
 GRAD_REL_TOL = 6e-2
+# phase 6c's reduced qwen2-moe (4 layers), card vs CPU on the card's picks:
+# the bf16 tolerance of the CPU tests (each leaf relative to its max |g|)
+BF16_GRAD_TOL = 3e-2
+REDUCED_SEQ = 128
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
@@ -489,10 +515,11 @@ def check_rmsnorm_bwd(dev, timer, peaks):
     from repro_torch.kernels.rmsnorm import ops, ref
     g = torch.Generator(device=dev).manual_seed(4)
     train = (BATCH * PROMPT, 2048)
+    granite = (BATCH * PROMPT, 1024)   # granite-moe's train rows (phase 6c)
     lm = (8 * 64, 128)      # the LM workflow's rows (LMKnobs: 8 x 64, D 128)
     shapes = [(8, 128), (3, 5, 64), (257, 96), (1, 8), (2049, 776), train,
-              (BATCH, PROMPT, 2048), (257, 2048), lm, (600, 8192)]
-    out = None
+              (BATCH, PROMPT, 2048), (257, 2048), lm, (600, 8192), granite]
+    out = granite_in = None
     for shape in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             x, dy = (torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -512,6 +539,8 @@ def check_rmsnorm_bwd(dev, timer, peaks):
                     ("rmsnorm_bwd", shape, dtype, ex, ew))
             if shape == train and dtype == torch.bfloat16:
                 out = (x, w, dy, max(ex, ew))
+            if shape == granite and dtype == torch.bfloat16:
+                granite_in = (x, w, dy, max(ex, ew))
             if shape in (train, lm) and dtype == torch.bfloat16:
                 times, calls = device_kernels(lambda: ops.rmsnorm_bwd(x, w, dy))
                 print(f"rmsnorm_bwd {shape} bf16: {sum(calls.values())} "
@@ -522,10 +551,57 @@ def check_rmsnorm_bwd(dev, timer, peaks):
                         ("rmsnorm_bwd kernels a call", shape, dict(calls)))
                 if shape == train:
                     profiled_ms = sum(times.values()) / 1e3
+
+    def timed_row(x, w, dy, err, lib_graph, lib_eager=None, **extra):
+        """The kernel, its plain version and the library's captured graph
+        timed at one shape, then the library's eager call where given; the
+        bound from the bytes (x, dy and dx once, w and dw in fp32) and the
+        fp32 operations (12 an element)."""
+        nbytes = 3 * x.numel() * x.element_size() + 2 * x.shape[-1] * 4
+        t_bytes = nbytes / peaks[0] * 1e3
+        t_ops = 12 * x.numel() / peaks[2] * 1e3  # g, x², g·x, dx (4), dw (3)
+        r = {"ms": timer(lambda: ops.rmsnorm_bwd(x, w, dy)),
+             "plain_ms": timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
+             "library_ms": timer(lib_graph.replay)}
+        if lib_eager is not None:
+            r["library_host_ms"] = timer(lib_eager)
+        r.update(extra, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 max_abs_err=err)
+        print(f"rmsnorm_bwd {tuple(x.shape)} bf16: " + json.dumps(r)
+              + f" ({nbytes / 1e6:.1f} MB; {r['bound_ms'] / r['ms']:.1%} of "
+              f"its bound, {r['ms'] / r['library_ms']:.2f}x the library's "
+              f"device time)")
+        return r
+
     x, w, dy, err = out
     again = ops.rmsnorm_bwd(x, w, dy)[1]
     require(torch.equal(again, ops.rmsnorm_bwd(x, w, dy)[1]),
             "rmsnorm_bwd's dw differs between two runs")
+    lib_graph, lib_eager = library_rmsnorm_bwd(x, w, dy)
+    lib_times, lib_calls = device_kernels(lib_eager)
+    print(f"rmsnorm_bwd {tuple(x.shape)} bf16, library backward's device "
+          f"kernels: {sum(lib_times.values()) / 1e3:.5f} ms in "
+          f"{sum(lib_calls.values())} kernel(s)")
+    for name, us in lib_times.most_common():
+        print(f"  {us / 1e3:9.5f} ms {lib_calls[name]:3d}x  {name[:110]}")
+    row = timed_row(x, w, dy, err, lib_graph, lib_eager,
+                    # kernel durations alone, from torch.profiler (no launch)
+                    profiled_ms=profiled_ms,
+                    library_profiled_ms=sum(lib_times.values()) / 1e3)
+    del lib_graph
+    # granite-moe's train rows (width 1024), timed the same way
+    x, w, dy, err = granite_in
+    lib_graph, _ = library_rmsnorm_bwd(x, w, dy)
+    row["d1024_granite_moe"] = timed_row(x, w, dy, err, lib_graph)
+    del lib_graph
+    return row
+
+
+def library_rmsnorm_bwd(x, w, dy):
+    """(graph, eager call) of the library's backward, ``torch.autograd.grad``
+    through ``F.rms_norm``: the graph captured once (its replay times the
+    kernels' device time), required bitwise equal to the eager call."""
     d = x.shape[-1]
     xl = x.detach().requires_grad_()
     wl = w.to(x.dtype).requires_grad_()
@@ -553,31 +629,7 @@ def check_rmsnorm_bwd(dev, timer, peaks):
     dx_e, dw_e = lib_eager()
     require(torch.equal(dx_g, dx_e) and torch.equal(dw_g, dw_e),
             "the library backward's graph replay differs from its eager call")
-    lib_times, lib_calls = device_kernels(lib_eager)
-    print(f"rmsnorm_bwd {tuple(x.shape)} bf16, library backward's device "
-          f"kernels: {sum(lib_times.values()) / 1e3:.5f} ms in "
-          f"{sum(lib_calls.values())} kernel(s)")
-    for name, us in lib_times.most_common():
-        print(f"  {us / 1e3:9.5f} ms {lib_calls[name]:3d}x  {name[:110]}")
-    nbytes = 3 * x.numel() * x.element_size() + 2 * d * 4  # x, dy; dx; w; dw
-    flops = 12 * x.numel()      # g, x², g·x, dx (4), dw (3), fp32
-    t_bytes, t_ops = nbytes / peaks[0] * 1e3, flops / peaks[2] * 1e3
-    row = {"ms": timer(lambda: ops.rmsnorm_bwd(x, w, dy)),
-           "plain_ms": timer(lambda: ref.rmsnorm_bwd_ref(x, w, dy)),
-           "library_ms": timer(lib_graph.replay),
-           "library_host_ms": timer(lib_eager),
-           # kernel durations alone, from torch.profiler (no launch)
-           "profiled_ms": profiled_ms,
-           "library_profiled_ms": sum(lib_times.values()) / 1e3,
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "max_abs_err": err}
-    print(f"rmsnorm_bwd {tuple(x.shape)} bf16: " + json.dumps(row)
-          + f" ({nbytes / 1e6:.1f} MB; {row['bound_ms'] / row['ms']:.1%} of "
-          f"its bound, {row['ms'] / row['library_ms']:.2f}x the library's "
-          f"device time)")
-    del lib_graph
-    return row
+    return lib_graph, lib_eager
 
 
 def check_flash(dev, timer, peaks):
@@ -1226,32 +1278,69 @@ def profile_serving(dev, cfg, params, prompts, max_len, inputs=None):
 # ------------------------------------------------------------------ phase 4d
 @contextlib.contextmanager
 def moe_routes(picks=None):
-    """Every MoE call's ``Routing`` (experts, keep, slot tables), in call
-    order: ``moe_block`` calls ``route``, and ``route`` calls ``top_k``,
-    through their module. With ``picks`` (another run's routings, in call
-    order) each call takes that run's top-k experts instead of its own,
-    gated by its own probabilities."""
+    """Every MoE call's ``Routing`` (experts, keep, slot tables), keyed by
+    where the model makes it: {(microbatch, layer): [its calls, in
+    order]}. ``moe_block`` calls ``route`` and ``route`` calls ``top_k``,
+    through their module. Each ``steps.value_and_grad`` call is a
+    microbatch (serving makes none: all its calls are microbatch -1);
+    within one, a layer is its router's address (the stacked router's
+    ``unbind`` views), numbered in the order the calls first meet it. So a
+    layer's list holds a served prefill's call and then each decode
+    step's, or a training forward's and then its recompute's, which walks
+    the layers (or jamba's groups) the other way. With ``picks`` (another
+    run's record) the nth call at a key takes that run's nth top-k experts
+    there, gated by its own probabilities. The gates and aux kept here are
+    detached."""
     from repro_torch.models import moe
-    seen, real_route, real_top_k = [], moe.route, moe.top_k
+    from repro_torch.train import steps
+    seen, now = {}, {"mb": -1, "layers": {}, "at": None}
+    real_route, real_top_k, real_vag = moe.route, moe.top_k, steps.value_and_grad
+
+    def value_and_grad(*a, **kw):
+        now["mb"] += 1
+        now["layers"] = {}
+        return real_vag(*a, **kw)
+
+    def route(mcfg, router, xt):
+        layers = now["layers"]
+        key = (now["mb"], layers.setdefault(router.data_ptr(), len(layers)))
+        now["at"] = (key, len(seen.get(key, ())))
+        rt = real_route(mcfg, router, xt)
+        seen.setdefault(key, []).append(
+            rt._replace(gate=rt.gate.detach(), aux=rt.aux.detach()))
+        return rt
 
     def top_k(probs, k):
-        idx = picks[len(seen)].expert_idx
+        key, n = now["at"]
+        idx = picks[key][n].expert_idx.to(probs.device)
         return probs.gather(1, idx), idx
 
-    moe.route = lambda *a: seen.append(real_route(*a)) or seen[-1]
+    steps.value_and_grad, moe.route = value_and_grad, route
     if picks is not None:
         moe.top_k = top_k
     try:
         yield seen
     finally:
-        moe.route, moe.top_k = real_route, real_top_k
+        steps.value_and_grad, moe.route, moe.top_k = (real_vag, real_route,
+                                                      real_top_k)
+
+
+def routes_in_order(record, depth=None):
+    """A ``moe_routes`` record as a list: every key's first call in key
+    order, then every key's second, and so on, up to ``depth`` calls a key
+    (a served run: its prefill layer by layer, then each decode step's; a
+    training run at depth 1: each microbatch's forward, layer by layer)."""
+    keys = sorted(record)
+    depth = depth or max(len(record[k]) for k in keys)
+    return [record[k][n] for n in range(depth) for k in keys
+            if n < len(record[k])]
 
 
 def cached_path(dev, cfg, params, prompts, served, picks=None):
     """The serving calls fed the served tokens: prefill of ``prompts``,
     then GEN - 1 decode steps of ``served``'s tokens, routing on their own
-    or on ``picks`` (``moe_routes``). Returns the prefill and last logits
-    and every MoE call's routing."""
+    or on ``picks`` (a ``moe_routes`` record). Returns the prefill and last
+    logits and the ``moe_routes`` record of every MoE call."""
     from repro_torch.train import steps
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     served = served.to(dev)
@@ -1288,8 +1377,8 @@ def plain_cached_path(dev, cfg, params, prompts, served, attn_impl,
 
 def plain_moe_logits(cfg, params, tokens, attn_impl, picks=None):
     """The no-cache forward on the plain path (``rmsnorm_ref``, plain
-    attention and SSD scan), routing on its own or on ``picks``
-    (``moe_routes``): the last position's logits."""
+    attention and SSD scan), routing on its own or on ``picks`` (a
+    ``moe_routes`` record): the last position's logits."""
     from repro_torch.models import lm
     with (torch.inference_mode(), plain_kernels(PLAIN_SCAN[attn_impl]),
           moe_routes(picks)):
@@ -1297,19 +1386,17 @@ def plain_moe_logits(cfg, params, tokens, attn_impl, picks=None):
                           params, tokens).logits[:, -1]
 
 
-def no_cache_picks(routes, n_layers, length):
-    """A cached run's top-k picks (its prefill's calls, then a decode
-    step's, layer by layer) as the no-cache forward over its first
-    ``length`` positions meets them: one call a layer over every (row,
+def no_cache_picks(record, length):
+    """A cached run's ``moe_routes`` record (each layer's prefill call,
+    then its decode steps') as the no-cache forward over the first
+    ``length`` positions meets it: one call a layer over every (row,
     position)."""
-    b = BATCH
-    out = []
-    for layer in range(n_layers):
-        calls = routes[layer::n_layers]
-        idx = torch.cat([r.expert_idx.reshape(b, -1, r.expert_idx.shape[1])
+    out = {}
+    for key, calls in record.items():
+        idx = torch.cat([r.expert_idx.reshape(BATCH, -1, r.expert_idx.shape[1])
                          for r in calls], 1)[:, :length]
-        out.append(types.SimpleNamespace(expert_idx=idx.reshape(
-            -1, idx.shape[-1])))
+        out[key] = [types.SimpleNamespace(expert_idx=idx.reshape(
+            -1, idx.shape[-1]))]
     return out
 
 
@@ -1380,13 +1467,14 @@ def moe_path(dev, cfg, expect):
     # path routing on its own hidden state, and the plain paths on the
     # served path's top-k picks, which takes out the routing flips that a
     # near-tie and a one-ulp difference make
-    first, last, served = cached_path(dev, cfg, params, prompts, res.tokens)
+    first, last, record = cached_path(dev, cfg, params, prompts, res.tokens)
     require(same_bits(first, res.prefill_logits)
             and same_bits(last, res.last_logits),
             f"{cfg.name}: the teacher-forced replay is not the served run")
-    require(len(served) == n * GEN, len(served))
+    served = routes_in_order(record)
+    require(len(record) == n and len(served) == n * GEN, len(served))
     plain = {}
-    for picks in (None, served):
+    for picks in (None, record):
         for attn_impl in ("chunked", "reference"):
             plain[picks is None, attn_impl] = plain_cached_path(
                 dev, cfg, params, prompts, res.tokens, attn_impl, picks)
@@ -1394,6 +1482,7 @@ def moe_path(dev, cfg, expect):
     for own in (True, False):
         (p_first, p_last, routes), (f_first, f_last, f_routes) = (
             plain[own, "chunked"], plain[own, "reference"])
+        routes, f_routes = routes_in_order(routes), routes_in_order(f_routes)
         errs[own] = {"prefill": rel_err(p_first, res.prefill_logits),
                      "last_decode": rel_err(p_last, res.last_logits)}
         floor = {"prefill": rel_err(p_first, f_first),
@@ -1412,7 +1501,8 @@ def moe_path(dev, cfg, expect):
           f"{res.tokens[0][:16].tolist()}")
     require(all(err < LOGITS_REL_TOL for err in errs[False].values()),
             (cfg.name, "on the served picks", errs[False]))
-    disagree = routing_disagreement(served, plain[True, "chunked"][2])
+    disagree = routing_disagreement(
+        served, routes_in_order(plain[True, "chunked"][2]))
     require(disagree["picks"] < ROUTING_DISAGREE_MAX, (cfg.name, disagree))
 
     # drop-free: capacity = the tokens of the call, so the cached decode is
@@ -1425,7 +1515,7 @@ def moe_path(dev, cfg, expect):
     tokens = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
     seq = torch.cat([tokens, res_free.tokens[:, :-1].to(dev)], 1)
     for own in (True, False):
-        picks = {t: None if own else no_cache_picks(free_routes, n, t.shape[1])
+        picks = {t: None if own else no_cache_picks(free_routes, t.shape[1])
                  for t in (tokens, seq)}
         label = "its own routing" if own else "the served picks"
         plain = {t: plain_moe_logits(free, params, t, "chunked", picks[t])
@@ -2031,17 +2121,80 @@ def _norm_grads(grads):
 
 
 def _named_grads(grads, prefix=""):
-    """Every leaf's gradient, by its path in the tree ("blocks.ssm.a_log")."""
-    if not isinstance(grads, dict):
+    """Every leaf's gradient, by its path in the tree ("blocks.ssm.a_log",
+    "groups.1.moe.router": a list index is a key)."""
+    if not isinstance(grads, (dict, list)):
         return {prefix: grads}
     out = {}
-    for k, v in grads.items():
-        out.update(_named_grads(v, f"{prefix}.{k}" if prefix else k))
+    for k, v in (grads.items() if isinstance(grads, dict)
+                 else enumerate(grads)):
+        out.update(_named_grads(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
 
 
+def check_recompute(record, calls, label):
+    """Each layer of each microbatch routed ``calls`` times (2 under remat:
+    the forward and its recompute), every time as its forward did: the
+    same top-k picks and kept assignments."""
+    for key, rts in record.items():
+        require(len(rts) == calls, (label, key, len(rts), calls))
+        for rt in rts[1:]:
+            require(torch.equal(rt.expert_idx, rts[0].expert_idx)
+                    and torch.equal(rt.keep, rts[0].keep),
+                    (label, key, "a recompute routed otherwise"))
+
+
+def expert_load(cfg, params, batch):
+    """Where a training run's drops come from: one no-grad forward of
+    ``batch`` with each MoE layer's router input kept. For the first and
+    the last MoE layer: the load per expert (its top-k assignments over the
+    call's tokens) as max and mean beside the capacity, and the dropped
+    share; the coherence of the router's inputs, |mean of the unit rows|²
+    (1 when every token's hidden state points one way, about 1/d_model for
+    independent rows); and the max load and dropped share that the same
+    router gives Gaussian rows of the same count and scale, which holds
+    the router apart from its inputs."""
+    from repro_torch.models import lm, moe
+    kept, real = [], moe.route
+
+    def route(mcfg, router, xt):
+        kept.append((mcfg, router, xt))
+        return real(mcfg, router, xt)
+
+    moe.route = route
+    try:
+        with torch.no_grad():
+            lm.forward(cfg, params, batch["tokens"])
+    finally:
+        moe.route = real
+    gen = torch.Generator(device=batch["tokens"].device).manual_seed(SEED)
+    out = {}
+    for label, (mcfg, router, xt) in (("first", kept[0]), ("last", kept[-1])):
+        with torch.no_grad():
+            noise = (torch.randn(xt.shape, generator=gen, device=xt.device)
+                     * xt.float().std()).to(xt.dtype)
+            own, gauss = real(mcfg, router, xt), real(mcfg, router, noise)
+        load = [torch.bincount(r.expert_idx.flatten(),
+                               minlength=mcfg.num_experts) for r in (own, gauss)]
+        unit = F.normalize(xt.float(), dim=-1)
+        out[label] = {"max_load": int(load[0].max()),
+                      "mean_load": float(load[0].float().mean()),
+                      "capacity": own.cap, "dropped": dropped_share([own]),
+                      "coherence": float(unit.mean(0).square().sum()),
+                      "gaussian_max_load": int(load[1].max()),
+                      "gaussian_dropped": dropped_share([gauss])}
+    print(f"train {cfg.name}: load per expert of the first batch, first and "
+          f"last of {len(kept)} MoE layers: {json.dumps(out)}")
+    return out
+
+
+def differing_leaves(a, b) -> list:
+    """The leaves of two {name: gradient} whose bits differ."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
 def train_compare(dev, cfg, expect, plain, floor, pick, label,
-                  plain_steps=TRAIN_STEPS):
+                  plain_steps=TRAIN_STEPS, routed=False):
     """``cfg`` at full width through the trainer's step loop
     (``launch.train.train``, TRAIN_STEPS steps of batch BATCH x PROMPT),
     the main path with every launch count set to 0 just before it and read
@@ -2053,7 +2206,15 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
     norm a step within LOSS_REL_TOL of the plain path's, and each leaf
     ``pick`` names within GRAD_REL_TOL of its max |g|, the floor beside.
     Then one step profiled for the card's busy share. Returns the launch
-    counts."""
+    counts.
+
+    ``routed`` (a config with MoE layers): the main path's routing is
+    recorded by layer (``moe_routes``), each recompute held to its
+    forward's picks, the dropped share printed; the plain paths run on the
+    main path's picks, and each path's routing of the first batch on its
+    own is printed beside (``routing_disagreement``); the first batch's
+    gradients through the kernels are computed twice, bitwise equal leaf
+    for leaf."""
     from repro_torch.data import synth
     from repro_torch.data.pipeline import TokenBatcher, batch_to
     from repro_torch.launch import train
@@ -2087,8 +2248,13 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
     counters = launch_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    def routes(picks=None):
+        """``moe_routes`` where the model routes, else nothing."""
+        return moe_routes(picks) if routed else contextlib.nullcontext({})
+
     _reset(counters)
-    kern = run(cfg)                          # the main path
+    with routes() as kern_routes:
+        kern = run(cfg)                      # the main path
     torch.cuda.synchronize()
     launches = _read(counters)
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
@@ -2104,15 +2270,47 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
     require(kern.metrics[-1]["step"] == TRAIN_STEPS, kern.metrics[-1])
     kern_metrics = kern.metrics
     del kern                                 # frees its state
-    _, g_kern = steps.value_and_grad(cfg, params0, batch0)
-    g_kern = pick(g_kern)
+    calls = 1 if cfg.remat == "none" else 2
+    if routed:
+        check_recompute(kern_routes, calls, cfg.name)
+        fwd = routes_in_order(kern_routes, 1)
+        print(f"train {cfg.name}: {len(kern_routes)} (microbatch, MoE layer) "
+              f"routings over the run, each {calls}x, the recompute as its "
+              f"forward; capacity {fwd[0].cap}; dropped share of "
+              f"assignments {dropped_share(fwd):.4f}")
+        expert_load(cfg, params0, batch0)
+    with routes() as b_routes:
+        g_kern = pick(steps.value_and_grad(cfg, params0, batch0)[1])
+    if routed:
+        with moe_routes() as again_routes:
+            g_again = pick(steps.value_and_grad(cfg, params0, batch0)[1])
+        differ = differing_leaves(g_kern, g_again)
+        print(f"train {cfg.name}: the first batch's gradients twice through "
+              f"the kernels, {len(g_kern)} leaves, bitwise equal: "
+              f"{not differ} {differ}")
+        require(not differ, (cfg.name, "gradients differ between runs", differ))
+        require(all(torch.equal(a.expert_idx, b.expert_idx) for a, b in zip(
+            routes_in_order(b_routes, 1), routes_in_order(again_routes, 1))),
+            (cfg.name, "routing differs between runs"))
+        check_recompute(b_routes, calls, cfg.name)
+        del g_again
     before_plain = _read(counters)
     runs, grads = {}, {}
     for name, (ctx, c) in (("plain", plain), ("floor", floor)):
         t0 = time.perf_counter()
         with ctx:
-            runs[name] = run(c, plain_steps).metrics
-            grads[name] = pick(steps.value_and_grad(c, params0, batch0)[1])
+            with routes(kern_routes):
+                runs[name] = run(c, plain_steps).metrics
+            with routes(b_routes):
+                grads[name] = pick(steps.value_and_grad(c, params0, batch0)[1])
+            if routed:
+                with moe_routes() as own:
+                    steps.value_and_grad(c, params0, batch0)
+                apart = routing_disagreement(routes_in_order(b_routes, 1),
+                                             routes_in_order(own, 1))
+                print(f"train {cfg.name}, {name} path routing the first "
+                      f"batch on its own: disagreement with the kernel "
+                      f"path's {apart}")
         print(f"train {cfg.name}, {name} path: "
               f"{time.perf_counter() - t0:.1f} s")
     require(_read(counters) == before_plain, "the plain paths launched a kernel")
@@ -2217,6 +2415,143 @@ def train_ssm_path(dev):
         (plain_kernels(scan="chunked"), cfg), _named_grads, "train mamba2",
         plain_steps=1)
     print(f"train {cfg.name}: phase 6b {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_moe_path(dev):
+    """Phase 6c: granite-moe-1b-a400m at full width and depth (24 layers,
+    d_model 1024, 32 experts top 8, capacity factor 1.25) through the
+    trainer's step loop, as phase 6 trains internlm2: RMSNorm 4L + 1
+    forwards and 2L + 1 backwards a step under remat "block", no other
+    kernel (attention trains chunked); the plain path and the floor on the
+    main path's picks (``moe_routes``), every leaf's gradient held, the
+    first batch's gradients twice bitwise. Returns the launch counts."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.get(MOE_ARCHS[0])          # remat "block", attn "chunked"
+    L = cfg.num_layers
+    expect = {k: 0 for k in launch_counters()}
+    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
+                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    launches = train_compare(
+        dev, cfg, expect, (plain_kernels(), cfg),
+        (plain_kernels(), dataclasses.replace(cfg, attn_impl="reference")),
+        _named_grads, "train granite-moe", routed=True)
+    print(f"train {cfg.name}: phase 6c {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_moe_reduced(dev):
+    """Phase 6c, second part: qwen2-moe-a2.7b at ``configs.reduced`` (its
+    14.3 B parameters with fp32 moments and gradients need ~172 GB) with
+    the published capacity factor 1.25, so that assignments drop; its
+    shared expert, shared gate and attention biases go through the card's
+    backward. TRAIN_STEPS steps of batch BATCH x REDUCED_SEQ through the
+    trainer's loop on the card, exact counts; the same steps on the CPU
+    (each wrapper's plain version) on the card's picks, loss and grad norm
+    a step within LOSS_REL_TOL; the first batch's gradients twice on the
+    card, bitwise, and on the CPU on the card's picks, every leaf within
+    BF16_GRAD_TOL of its max |g|. Returns the launch counts."""
+    from repro_torch import configs
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher, batch_to
+    from repro_torch.launch import train
+    from repro_torch.models import registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+    t_phase = time.perf_counter()
+    cfg = configs.reduced(configs.get(MOE_ARCHS[1]))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    L = cfg.num_layers
+    params = registry.init(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batcher = TokenBatcher(synth.lm_tokens(SEED, 200_000, cfg.vocab_size),
+                           BATCH, REDUCED_SEQ, seed=SEED)
+    cpu = torch.device("cpu")
+
+    def run(d, picks=None):
+        p = tree_map(lambda t: t.to(d), params)
+        state = steps.TrainState(params=p, opt=adamw.init(p))
+        with moe_routes(picks) as routes:
+            res = train.train(cfg, state, batcher, 0, TRAIN_STEPS,
+                              lr=TRAIN_LR, total_steps=TRAIN_TOTAL, device=d,
+                              log_every=1)
+        return res.metrics, routes
+
+    counters = launch_counters()
+    expect = {k: 0 for k in counters}
+    expect.update(rmsnorm=(4 * L + 1) * TRAIN_STEPS,
+                  rmsnorm_bwd=(2 * L + 1) * TRAIN_STEPS)
+    torch.cuda.synchronize()
+    _reset(counters)
+    card, routes = run(dev)                  # the main path
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    print(f"train {cfg.name} (cf 1.25) on the card: launches {launches}")
+    require(launches == expect, ("train launches", cfg.name, launches, expect))
+    check_recompute(routes, 2, cfg.name)
+    host, _ = run(cpu, routes)
+    errs = {}
+    for i, (k_m, c_m) in enumerate(zip(card, host)):
+        for key in ("loss", "aux_loss", "grad_norm"):
+            errs[f"step{i + 1}.{key}"] = abs(k_m[key] - c_m[key]) / abs(c_m[key])
+
+    batch0 = batcher.batch_at(0)
+    p_card = tree_map(lambda t: t.to(dev), params)
+    grads = []
+    for _ in range(2):
+        with moe_routes() as b_routes:
+            grads.append(_named_grads(steps.value_and_grad(
+                cfg, p_card, batch_to(batch0, dev))[1]))
+    differ = differing_leaves(*grads)
+    require(not differ, (cfg.name, "gradients differ between runs", differ))
+    with moe_routes(b_routes):
+        g_cpu = _named_grads(steps.value_and_grad(
+            cfg, params, batch_to(batch0, cpu))[1])
+    for name, g in g_cpu.items():
+        k = grads[0][name]
+        require(bool(torch.isfinite(k).all()) and float(k.abs().max()) > 0,
+                (cfg.name, name, "zero or not finite"))
+        errs[f"grad.{name}"] = rel_err(g, k.cpu())
+    print(f"train {cfg.name}: dropped share of assignments "
+          f"{dropped_share(routes_in_order(routes, 1)):.4f}; the first batch's "
+          f"gradients twice on the card bitwise equal ({len(g_cpu)} leaves); "
+          f"card vs CPU on the card's picks (relative): {json.dumps(errs)}")
+    for key, err in errs.items():
+        require(err < (BF16_GRAD_TOL if key.startswith("grad") else
+                       LOSS_REL_TOL), (cfg.name, key, err))
+    print(f"train {cfg.name}: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_hybrid_path(dev):
+    """Phase 6d: jamba-v0.1-52b at ``configs.reduced`` (8 layers in 2
+    groups of 4: 3 Mamba-2 layers and attention, MoE on every other layer,
+    SSD head_dim 16 and chunk 8; its own grad_accum of 4): a group of 32
+    layers (13.27 B parameters, ~160 GB with fp32 moments and gradients)
+    does not fit the card. Through the trainer's loop with one checkpoint
+    a group; a microbatch runs 22 norms a forward, twice, and the final
+    norm (45 RMSNorm forwards), 23 backwards, 12 SSD forwards and 6
+    backwards, all on the CUDA-core kernels (chunk 8). Held as phase 6c
+    holds granite, against the plain path with the reference model's
+    chunked scan (finite at chunk 8), the floor the same with the
+    reference attention (the sequential oracle's Python loop over PROMPT
+    tokens would take ~30 s a step here). Returns the launch counts."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    cfg = configs.reduced(configs.get(HYBRID_ARCH))
+    n_ssm = cfg.num_layers - cfg.num_layers // cfg.attn_every
+    norms = 2 * cfg.num_layers + n_ssm
+    mb = cfg.grad_accum * TRAIN_STEPS
+    expect = {k: 0 for k in launch_counters()}
+    expect.update(rmsnorm=(2 * norms + 1) * mb, rmsnorm_bwd=(norms + 1) * mb,
+                  ssd=2 * n_ssm * mb, ssd_bwd=n_ssm * mb)
+    launches = train_compare(
+        dev, cfg, expect, (plain_kernels(), cfg),
+        (plain_kernels(), dataclasses.replace(cfg, attn_impl="reference")),
+        _named_grads, "train jamba", routed=True)
+    print(f"train {cfg.name}: phase 6d {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3187,6 +3522,9 @@ def main() -> int:
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "train-mamba2": train_ssm_path(dev),
+               "train-granite-moe": train_moe_path(dev),
+               "train-qwen2-moe-reduced": train_moe_reduced(dev),
+               "train-jamba-reduced": train_hybrid_path(dev),
                "lm-workflow": lm_workflow_path(dev),
                "paper-workflows": paper_workflows_path(dev),
                "fleet": fleet_path(dev, smi),

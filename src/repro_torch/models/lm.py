@@ -33,13 +33,16 @@ the SSM states (groups, attn_every - 1, ...). ``_hybrid_stack`` runs the
 SSM layers through the SSD chunk kernel as the ssm stack does, and the MoE
 FFN where ``cfg.layer_is_moe`` says, counted within the group.
 
-For training, each layer of the dense and ssm stacks runs under
-``torch.utils.checkpoint`` where the reference wraps its scan body in
-``jax.checkpoint`` (``_maybe_remat``, ``cfg.remat``), and only where grad
-mode is on and there is no cache, so serving is unchanged. The ssm family
-trains through the SSD chunk kernel and its backward kernel. The hybrid
-family does not train yet (``train/steps.py``, ROADMAP queue 1 items 10b
-and 10c), and ``_hybrid_stack`` checkpoints nothing.
+For training, each layer of the dense, MoE and ssm stacks, and each
+group of the hybrid stack, runs under ``torch.utils.checkpoint`` where
+the reference wraps its scan body in ``jax.checkpoint`` (``_maybe_remat``,
+``cfg.remat``), and only where grad mode is on and there is no cache, so
+serving is unchanged. The ssm and hybrid families train through the SSD
+chunk kernel and its backward kernel, the MoE and hybrid families through
+``moe_block``'s gather-only backward. A recompute routes as the forward
+did: it runs the same arithmetic on the same inputs, so its top-k picks
+are the forward's (the CPU tests and the card hold them alike), and the
+aux loss rides in the checkpointed function's outputs.
 
 The audio family is an encoder-decoder and lives in ``encdec.py``
 (``registry`` dispatches to it); ``lm.py`` refuses its configs.
@@ -421,24 +424,26 @@ def _hybrid_stack(cfg, params, h, positions, cache):
     chunk kernel (``use_kernel=True``, as ``_ssm_stack``), then one
     attention layer over the group's full-length cache, each followed by
     its FFN (``_ffn``: MoE where the group's defs put it, adding its aux
-    loss). The caches are written in place. Serving only: training the
-    family needs the SSD backward, so nothing is checkpointed."""
+    loss). With a cache (serving) the attention layer writes its K/V in
+    place and the SSM states are copied into the cache after the group
+    has run. Without one, where grad mode is on, each group runs under
+    ``_maybe_remat``, as the reference wraps its whole group body: the
+    backward recomputes a group from its input, and a recompute writes
+    no cache."""
     has_cache = cache is not None
     ng, n_ssm = _n_groups(cfg), cfg.attn_every - 1
     sublayers = [_unstack(tree, ng) for tree in params["groups"]]
-    aux = _no_aux(h)
-    for g in range(ng):
-        for i in range(cfg.attn_every):
-            p = sublayers[i][g]
+
+    def group(h, aux, gp, g):
+        states = []
+        for i, p in enumerate(gp):
             x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
             if i < n_ssm:
                 state = ((cache["conv"][g, i], cache["h"][g, i]) if has_cache
                          else None)
-                out, (conv, hst) = ssd_lib.ssm_block(
+                out, new_state = ssd_lib.ssm_block(
                     cfg, cfg.ssm, p["ssm"], x, state, use_kernel=True)
-                if has_cache:
-                    cache["conv"][g, i].copy_(conv)
-                    cache["h"][g, i].copy_(hst)
+                states.append(new_state)
             else:
                 out, _ = layers.attn_block(
                     cfg, p["attn"], x, positions, window=None,
@@ -446,4 +451,21 @@ def _hybrid_stack(cfg, params, h, positions, cache):
                     else None,
                     cache_pos=cache["pos"] if has_cache else None)
             h, aux = _ffn(cfg, p, h + out, aux)
+        return h, aux, states
+
+    def body(h, aux, gp, g):
+        return group(h, aux, gp, g)[:2]
+
+    if torch.is_grad_enabled() and not has_cache:
+        body = _maybe_remat(body, cfg)
+    aux = _no_aux(h)
+    for g in range(ng):
+        gp = [sublayers[i][g] for i in range(cfg.attn_every)]
+        if not has_cache:
+            h, aux = body(h, aux, gp, g)
+            continue
+        h, aux, states = group(h, aux, gp, g)
+        for i, (conv, hst) in enumerate(states):
+            cache["conv"][g, i].copy_(conv)
+            cache["h"][g, i].copy_(hst)
     return h, dict(cache) if has_cache else None, aux

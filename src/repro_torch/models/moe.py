@@ -27,6 +27,32 @@ card (``bincount`` on a CUDA tensor reads its maximum back):
     rows in sorted order, ascending expert id, adding each to the bf16
     output in turn, and so does the sum here.
 
+Training adds the backward, and it too has no accumulating scatter. The
+two row reads of the block are ``autograd.Function``s whose backward is a
+gather through the other table (an index read's own backward is an
+accumulating index write, which adds with float atomics on the card):
+
+  * the dispatch ``xe[slot] = xt[token_for_slot[slot]]`` (``_Dispatch``):
+    ``dxt[t]`` is the sum of its kept slots' cotangents, gathered through
+    ``flat_slot`` and added in the combine's order (ascending expert id,
+    rounding to the operand dtype after each add). That is the order of
+    the reference's transpose, a scatter-add that visits the slots in
+    ascending order, so given the same cotangent it gives its bits (the
+    CPU tests hold them). An unfilled slot is never visited: ``xe`` is
+    multiplied by ``filled``, so its cotangent is 0;
+  * the combine's read ``y[t, j] = ye[flat_slot[t, j]]`` (``_SlotRead``):
+    each filled slot holds one assignment, so ``dye[slot]`` is that
+    assignment's cotangent, gathered through ``flat_for_slot``, and 0 for
+    an unfilled slot (the reference adds its dropped rows' zero
+    cotangents into the last slot, which leaves it as it is).
+
+The rest of the block's backward is deterministic as it stands: the
+sort's backward (a permutation: each element written once), the combine's
+per-row ``gather`` (its backward adds each row into a zero row at
+distinct indices: one add an element), the batched matmuls and the fp32
+router's matmul, softmax and means (fixed-order reductions). So two
+backward passes on the same inputs give the same bits on the card.
+
 ``moe_block_sharded``/``moe_block_a2a`` (the reference's ``shard_map``
 and all-to-all forms) come with the distributed substrate (ROADMAP queue 1
 item 9); without a mesh the reference falls back to ``moe_block``, and
@@ -75,6 +101,7 @@ class Routing(NamedTuple):
     keep: torch.Tensor            # (N·k,) rank within its expert < cap
     flat_slot: torch.Tensor       # (N·k,) e·cap + rank, or E·cap if dropped
     token_for_slot: torch.Tensor  # (E·cap,) int32
+    flat_for_slot: torch.Tensor   # (E·cap,) the (token·k + j) a slot holds
     filled: torch.Tensor          # (E·cap,) bool
     cap: int
     aux: torch.Tensor             # () fp32 Switch loss
@@ -118,12 +145,65 @@ def route(mcfg: MoECfg, router: torch.Tensor, xt: torch.Tensor) -> Routing:
     r = torch.arange(cap, device=xt.device)
     row = starts[:, None] + r                                   # (E, cap)
     filled = row < ends[:, None]
-    st = torch.div(order, k, rounding_mode="floor").to(torch.int32)
-    token_for_slot = torch.where(
-        filled, st[row.clamp_max(n * k - 1)], 0).reshape(-1)
+    flat_for_slot = torch.where(filled, order[row.clamp_max(n * k - 1)], 0)
+    token_for_slot = torch.div(flat_for_slot, k, rounding_mode="floor")
     return Routing(expert_idx=expert_idx, gate=gate, order=order, keep=keep,
-                   flat_slot=flat_slot, token_for_slot=token_for_slot,
+                   flat_slot=flat_slot,
+                   token_for_slot=token_for_slot.to(torch.int32).reshape(-1),
+                   flat_for_slot=flat_for_slot.reshape(-1),
                    filled=filled.reshape(-1), cap=cap, aux=aux)
+
+
+def _in_expert_order(rt: Routing, y: torch.Tensor) -> torch.Tensor:
+    """Each token's k rows of ``y`` (N, k, D) summed in ascending expert
+    id, rounding to ``y``'s dtype after every add: the order in which the
+    reference's scatter-adds visit them."""
+    n, k = rt.expert_idx.shape
+    by_expert = torch.argsort(rt.expert_idx, dim=-1)            # ids distinct
+    y = torch.gather(y, 1, by_expert[..., None].expand(n, k, y.shape[-1]))
+    out = y[:, 0]
+    for i in range(1, k):
+        out = out + y[:, i]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``xt[token_for_slot]`` (N, D) → (E·cap, D), whose backward is the
+    fixed-order sum of each token's kept slots (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, xt, rt):
+        ctx.rt = rt
+        return xt.index_select(0, rt.token_for_slot)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dxe):
+        rt = ctx.rt
+        n, k = rt.expert_idx.shape
+        n_slots = dxe.shape[0]
+        kept = (rt.flat_slot < n_slots).reshape(n, k, 1)
+        g = dxe.index_select(0, rt.flat_slot.clamp_max(n_slots - 1))
+        g = torch.where(kept, g.reshape(n, k, -1), 0)
+        return _in_expert_order(rt, g), None
+
+
+class _SlotRead(torch.autograd.Function):
+    """``ye[flat_slot]`` (E·cap, D) → (N·k, D), dropped assignments reading
+    the last slot; its backward gathers each filled slot's one cotangent
+    through ``flat_for_slot`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, ye, rt):
+        ctx.rt = rt
+        return ye.index_select(0, rt.flat_slot.clamp_max(ye.shape[0] - 1))
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        rt = ctx.rt
+        dye = dy.index_select(0, rt.flat_for_slot)
+        return torch.where(rt.filled[:, None], dye, 0), None
 
 
 def combine(rt: Routing, ye: torch.Tensor) -> torch.Tensor:
@@ -136,16 +216,10 @@ def combine(rt: Routing, ye: torch.Tensor) -> torch.Tensor:
     does not."""
     n, k = rt.expert_idx.shape
     d = ye.shape[-1]
-    n_slots = ye.shape[0]
-    kept = (rt.flat_slot < n_slots).to(rt.gate.dtype).reshape(n, k)
-    y = ye[rt.flat_slot.clamp_max(n_slots - 1)].reshape(n, k, d)
+    kept = (rt.flat_slot < ye.shape[0]).to(rt.gate.dtype).reshape(n, k)
+    y = _SlotRead.apply(ye, rt).reshape(n, k, d)
     y = y * (rt.gate * kept)[..., None].to(y.dtype)              # 0 if dropped
-    by_expert = torch.argsort(rt.expert_idx, dim=-1)            # ids distinct
-    y = torch.gather(y, 1, by_expert[..., None].expand(n, k, d))
-    out = y[:, 0]
-    for i in range(1, k):
-        out = out + y[:, i]
-    return out
+    return _in_expert_order(rt, y)
 
 
 def moe_block(mcfg: MoECfg, p: dict, x: torch.Tensor
@@ -156,7 +230,7 @@ def moe_block(mcfg: MoECfg, p: dict, x: torch.Tensor
     xt = x.reshape(b * s, d)
     rt = route(mcfg, p["router"], xt)
 
-    xe = xt[rt.token_for_slot].reshape(e, rt.cap, d)
+    xe = _Dispatch.apply(xt, rt).reshape(e, rt.cap, d)
     xe = xe * rt.filled.reshape(e, rt.cap, 1).to(xe.dtype)
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"]).reshape(e * rt.cap, d)        # (E·cap, D)

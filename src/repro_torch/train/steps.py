@@ -7,15 +7,16 @@ clipping, the 1-indexed warmup-cosine schedule and AdamW (fp32 moments).
 Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
 its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
 dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
-The dense, vlm, audio and ssm families train (the vlm batch adds
-``vision_embeds`` and ``mrope_positions``, the audio batch ``frames``,
-each split into microbatches as the reference splits them); the ssm
-family's SSD chunk kernel is an ``autograd.Function`` whose backward is a
-kernel too (``kernels/ssd/ops.py`` ``SSDChunkFn``). The MoE family serves
-but its aux loss is not in the train step yet (ROADMAP queue 1 item 10b),
-and the hybrid family waits on that and on its own slice (item 10c).
-Attention trains through the plain paths: the FlashAttention kernel has
-no backward yet (queue 2).
+Every family trains (the vlm batch adds ``vision_embeds`` and
+``mrope_positions``, the audio batch ``frames``, each split into
+microbatches as the reference splits them); the ssm and hybrid families'
+SSD chunk kernel is an ``autograd.Function`` whose backward is a kernel
+too (``kernels/ssd/ops.py`` ``SSDChunkFn``), and the MoE and hybrid
+families' ``moe_block`` has a backward with no accumulating scatter
+(``models/moe.py``); their loss adds ``0.01 · aux_loss``, the sum of the
+MoE layers' load-balancing losses, as the reference's does. Attention
+trains through the plain paths: the FlashAttention kernel has no backward
+yet (queue 2), so ``attn_impl="flash"`` is refused.
 
 ``prefill_step`` builds the KV cache from a full prompt in one forward
 (for the audio family, after encoding the frames, whose output the cache
@@ -47,16 +48,6 @@ def init_train_state(cfg: ArchConfig, generator: torch.Generator,
 
 
 def _require_trainable(cfg: ArchConfig) -> None:
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family does not train yet: it waits on "
-            "the MoE aux loss (ROADMAP queue 1 item 10b) and on its own "
-            "slice, the hybrid stack checkpointed and held against the "
-            "reference through the SSD backward (item 10c)")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family serves but does not train yet: the "
-            "MoE aux loss in the train step (ROADMAP queue 1 item 10b)")
     if cfg.attn_impl == "flash":
         raise NotImplementedError(
             "the FlashAttention kernel has no backward yet (ROADMAP queue 2): "

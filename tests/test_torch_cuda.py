@@ -589,6 +589,132 @@ def test_moe_forward_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", MOE_CUDA_CASES, ids=str)
+def test_moe_block_gradients_repeat_bitwise_on_the_card(cuda, case):
+    """The block's backward twice on the card, with the deterministic mode
+    off (its default): the gradients of x, the router and every expert
+    tensor (the shared expert and its gate too) are the same bits. The
+    two row reads' backwards are gathers (``models/moe.py``), so no float
+    atomic orders a sum."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import moe
+    from repro_torch.models.params import tree_map
+    mcfg, p, x = _moe_inputs(*case)
+    p, x = tree_map(lambda t: t.to(cuda), p), x.to(cuda)
+    g = torch.randn(x.shape, generator=torch.Generator(device=cuda)
+                    .manual_seed(2), device=cuda).to(x.dtype)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(False)
+    try:
+        runs = []
+        for _ in range(2):
+            params = tree_map(lambda t: t.detach().requires_grad_(), p)
+            xl = x.detach().requires_grad_()
+            out, aux = moe.moe_block(mcfg, params, xl)
+            loss = (out.float() * g.float()).sum() + 0.5 * aux
+            runs.append(torch.autograd.grad(loss, [xl] + tree_leaves(params)))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    for a, b in zip(*runs):
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+        assert torch.equal(a, b)
+
+
+def _named(tree, prefix=""):
+    """{path: leaf} over nested dicts and lists ("groups.1.moe.router")."""
+    if not isinstance(tree, (dict, list)):
+        return {prefix: tree}
+    out = {}
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        out.update(_named(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "jamba-v0.1-52b"])
+def test_moe_and_hybrid_gradients_on_the_card_match_the_cpu(cuda, name,
+                                                            monkeypatch):
+    """``value_and_grad`` of a reduced config with MoE layers (capacity
+    factor 1.25: drops) under ``remat="block"`` on the card, through the
+    RMSNorm kernels (and jamba's SSD kernels), against the plain path: the
+    same weights and tokens on the CPU, where each wrapper takes its plain
+    version. The card routes on its own first, and a recompute must route
+    as its forward did; the CPU takes the card's picks, call by call (both
+    run the same calls in the same order). Loss within 1e-2 relative, every
+    leaf's gradient within 6e-2 of its max |g| (``chip_smoke.py``'s
+    GRAD_REL_TOL); the card's counts are the remat arithmetic; a second
+    card run gives the same bits, leaf for leaf."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import moe, registry
+    from repro_torch.models.params import tree_map
+    from repro_torch.train import steps
+    cfg = configs.reduced(configs.get(name))
+    cfg = dataclasses.replace(cfg, grad_accum=1, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=1.25))
+    params = registry.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    real_route = moe.route
+
+    def run(dev, forced=None):
+        seen = []      # (the router's address: its layer, the top-k picks)
+
+        def route(mcfg, router, xt):
+            rt = real_route(mcfg, router, xt)
+            seen.append((router.data_ptr(), rt.expert_idx.cpu()))
+            return rt
+
+        def top_k(probs, k):
+            idx = forced[len(seen)].to(probs.device)
+            return probs.gather(1, idx), idx
+
+        monkeypatch.setattr(moe, "route", route)
+        if forced is not None:
+            monkeypatch.setattr(moe, "top_k", top_k)
+        for w, attr in ((trn_ops.rmsnorm, "launches"),
+                        (trn_ops.rmsnorm_bwd, "launches"),
+                        (tssd_ops.ssd, "launches"),
+                        (tssd_ops.ssd, "launches_bwd")):
+            setattr(w, attr, 0)
+        metrics, grads = steps.value_and_grad(
+            cfg, tree_map(lambda t: t.to(dev), params),
+            {"tokens": toks.to(dev)})
+        counts = (trn_ops.rmsnorm.launches, trn_ops.rmsnorm_bwd.launches,
+                  tssd_ops.ssd.launches, tssd_ops.ssd.launches_bwd)
+        return float(metrics["loss"]), _named(grads), seen, counts
+
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+    if cfg.family == "hybrid":   # ln1, ln2 a layer, the gated norm a mixer
+        n_ssm = cfg.num_layers - cfg.num_layers // cfg.attn_every
+        norms, ssd_calls = 2 * cfg.num_layers + n_ssm, n_ssm
+    else:
+        norms, ssd_calls = 2 * cfg.num_layers, 0
+    loss, grads, seen, counts = run("cuda")
+    assert counts == (2 * norms + 1, norms + 1, 2 * ssd_calls, ssd_calls)
+    by_layer = {}
+    for ptr, idx in seen:
+        by_layer.setdefault(ptr, []).append(idx)
+    # each MoE layer routes twice: in the forward and in its recompute
+    assert len(by_layer) == n_moe and len(seen) == 2 * n_moe
+    assert all(len(v) == 2 and torch.equal(*v) for v in by_layer.values())
+    picks = [idx for _, idx in seen]
+    loss2, grads2, _, _ = run("cuda", picks)
+    assert loss2 == loss
+    for key, g in grads.items():
+        assert torch.equal(g, grads2[key]), key
+    cpu_loss, cpu_grads, _, _ = run("cpu", picks)
+    assert abs(loss - cpu_loss) < 1e-2 * cpu_loss
+    for key, g in cpu_grads.items():
+        k = grads[key].float().cpu()
+        assert bool(torch.isfinite(k).all()), key
+        err = float((k - g.float()).abs().max() / g.float().abs().max())
+        assert err < 6e-2, (key, err)
+
+
+@pytest.mark.cuda
 def test_vlm_forward_on_the_card_matches_the_cpu(cuda):
     """The reduced qwen2-vl served on the card (flash in prefill, RMSNorm
     everywhere) with a 9-patch vision prefix and three different M-RoPE

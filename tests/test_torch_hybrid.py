@@ -317,13 +317,6 @@ def test_hybrid_ssm_layers_take_the_kernel_path(monkeypatch):
     assert len(calls) == 6 and cache["pos"] == 12
 
 
-def test_hybrid_refuses_to_train_naming_the_ssd_backward():
-    cfg = tconfigs.reduced(tconfigs.get(NAME))
-    with pytest.raises(NotImplementedError, match="SSD.*item 10"):
-        tsteps.loss_fn(cfg, {}, {"tokens": torch.zeros(1, 4,
-                                                       dtype=torch.int32)})
-
-
 def test_serve_cli_runs_reduced_hybrid_on_cpu(capsys):
     serve.main(["--arch", NAME, "--device", "cpu", "--batch", "2",
                 "--prompt-len", "12", "--gen-tokens", "5"])
