@@ -143,6 +143,17 @@ Phases (any failure exits non-zero; none is caught and passed over):
      group at full width does not fit), held as phase 6c holds granite,
      with the SSD forward and backward on their CUDA-core kernels (chunk
      8), the plain path on the reference model's chunked scan;
+  6e. ``remat="dots"`` (the products with no batch dimension saved, the
+     rest recomputed, through selective activation checkpointing): first
+     internlm2-1.8b at full width and depth, 3 steps through the trainer's
+     loop with the launch counts of ``"block"`` (the kernels, launched
+     through ``ctypes``, are recomputed), the first batch's gradients
+     against ``"block"`` (each leaf within 1e-3 of its max |g|, bitwise
+     equality printed), a step of each policy timed in turns and profiled
+     (device kernels, device and wall ms, busy share, peak memory: "dots"
+     launches at least L device kernels fewer); then mamba2-130m, one step
+     with phase 6b's counts for a step (the SSD kernels too), its
+     gradients against ``"block"``;
   7. the LM workflow in a Helix session (``launch.bench_tier`` on the card:
      cold, warm, then an ``LI`` edit of ``peak_lr``), each iteration's
      counts matching the states the planner chose (a reused ``train``
@@ -329,6 +340,12 @@ GRAD_REL_TOL = 6e-2
 # the bf16 tolerance of the CPU tests (each leaf relative to its max |g|)
 BF16_GRAD_TOL = 3e-2
 REDUCED_SEQ = 128
+# phase 6e: remat "dots" against "block" on the same batch through the same
+# kernels, each leaf relative to its max |g|: the same arithmetic gives the
+# same bits (the CPU tests); a product handed back from the wrong cached
+# output reads O(1)
+DOTS_GRAD_TOL = 1e-3
+TRAIN_PEAK_GB = {}   # phase 6's peak memory by config name, for phase 6e
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
@@ -2257,7 +2274,8 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
         kern = run(cfg)                      # the main path
     torch.cuda.synchronize()
     launches = _read(counters)
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    peak_gb = TRAIN_PEAK_GB[cfg.name] = round(
+        torch.cuda.max_memory_allocated(dev) / 1e9, 2)
     steady = kern.step_s[1:]
     step_ms = sum(steady) / len(steady) * 1e3
     print(f"train {cfg.name} through the kernels: step s {kern.step_s}; "
@@ -2553,6 +2571,174 @@ def train_hybrid_path(dev):
         _named_grads, "train jamba", routed=True)
     print(f"train {cfg.name}: phase 6d {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ------------------------------------------------------------------ phase 6e
+@contextlib.contextmanager
+def saved_by_dots():
+    """The products ``remat="dots"`` saves in the forwards run under it
+    (``lm._dots_policy``'s ``MUST_SAVE`` decisions, recomputes apart)."""
+    from repro_torch.models import lm
+    real, saved = lm._dots_policy, []
+
+    def policy(ctx, op, *args, **kwargs):
+        out = real(ctx, op, *args, **kwargs)
+        if not ctx.is_recompute and out == \
+                torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE:
+            saved.append(str(op))
+        return out
+
+    lm._dots_policy = policy
+    try:
+        yield saved
+    finally:
+        lm._dots_policy = real
+
+
+def dots_compare(dev, cfg, expect, n_steps, label, profile):
+    """``cfg`` (``remat="dots"``) at full width through the trainer's step
+    loop: ``n_steps`` steps of batch BATCH x PROMPT, every launch count set
+    to 0 just before and read just after, required equal to ``expect``;
+    finite losses; the peak memory beside phase 6's under ``"block"``. Then
+    the first batch's gradients under ``"dots"`` and under ``"block"``,
+    through the kernels in both: each leaf's largest difference over its
+    max |g| under DOTS_GRAD_TOL, and whether every leaf is bitwise equal;
+    the products saved a layer. With ``profile``, ``profile_dots``.
+    Returns the launch counts."""
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher, batch_to
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    block = dataclasses.replace(cfg, remat="block")
+    L = cfg.num_layers
+    params0 = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev).params
+    tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
+                             cfg.vocab_size)
+    batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
+    batch0 = batch_to(batcher.batch_at(0), dev)
+
+    def fresh():
+        return steps.TrainState(params=params0, opt=adamw.init(params0))
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    run = train.train(cfg, fresh(), batcher, 0, n_steps, lr=TRAIN_LR,
+                      total_steps=TRAIN_TOTAL, device=dev, log_every=1)
+    torch.cuda.synchronize()
+    launches = _read(counters)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"{label}: {cfg.name} remat {cfg.remat}, {L} layers, {n_steps} "
+          f"step(s) of {BATCH} x {PROMPT}: step s {run.step_s}; losses "
+          f"{[m['loss'] for m in run.metrics]}; peak memory {peak_gb:.2f} GB "
+          f"(phase 6's under \"block\": {TRAIN_PEAK_GB.get(cfg.name)}); "
+          f"launches {launches}")
+    require(launches == expect, (label, "launches", launches, expect))
+    require(all(np.isfinite(m["loss"]) for m in run.metrics),
+            (label, "a loss is not finite"))
+    del run
+
+    with saved_by_dots() as saved:
+        g_dots = _named_grads(steps.value_and_grad(cfg, params0, batch0)[1])
+    g_block = _named_grads(steps.value_and_grad(block, params0, batch0)[1])
+    errs = {k: rel_err(g_block[k], g) for k, g in g_dots.items()}
+    differ = differing_leaves(g_dots, g_block)
+    worst = max(errs, key=errs.get)
+    print(f"{label}: the first batch's gradients under \"dots\" vs "
+          f"\"block\", {len(errs)} leaves, bitwise equal: {not differ} "
+          f"({len(differ)} differ); largest |diff| / max |g| {errs[worst]:.3e} "
+          f"({worst}); each leaf: {json.dumps(errs)}")
+    print(f"{label}: \"dots\" saved {len(saved)} products in a forward, "
+          f"{len(saved) / L:g} a layer ({sorted(set(saved))})")
+    require(errs[worst] < DOTS_GRAD_TOL, (label, worst, errs[worst]))
+    require(len(saved) > 0 and len(saved) % L == 0, (label, "saved", saved))
+    del g_dots, g_block
+    if profile:
+        profile_dots(dev, cfg, block, fresh, batch0, len(saved) // L, label)
+    del params0, batch0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_dots(dev, cfg, block, fresh, batch, saved, label):
+    """A step of ``"block"`` and of ``"dots"`` (``cfg``) on ``batch`` from
+    ``fresh()``: timed in turns (block, dots, dots, block), then one
+    profiled each, its device kernels, device and wall ms, busy share and
+    peak memory; the ``"dots"`` step must launch at least L device kernels
+    fewer (``saved``: the products it saves a layer)."""
+    from repro_torch.launch.profile_serve import profiled
+    from repro_torch.train import steps
+    from torch.profiler import ProfilerActivity
+    L = cfg.num_layers
+
+    def step(c):
+        def run_step(state):
+            t0 = time.perf_counter()
+            _, metrics = steps.train_step(c, state, batch, peak_lr=TRAIN_LR,
+                                          warmup_steps=20,
+                                          total_steps=TRAIN_TOTAL)
+            float(metrics["loss"])
+            return (time.perf_counter() - t0) * 1e3
+        return run_step
+
+    timed = {"block": [], "dots": []}
+    for c in (block, cfg, cfg, block):
+        timed[c.remat].append(step(c)(fresh()))
+    print(f"{label}: ms a step, host clock to the loss on the host, in turns "
+          f"block, dots, dots, block: {json.dumps(timed)}")
+    prof = {}
+    for c in (block, cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, calls, wall_ms = profiled(
+            step(c), setup=fresh,
+            activities=(ProfilerActivity.CPU, ProfilerActivity.CUDA))
+        dev_ms = sum(times.values()) / 1e3
+        prof[c.remat] = {
+            "device_kernels": sum(calls.values()), "device_ms": dev_ms,
+            "wall_ms": wall_ms, "busy": dev_ms / wall_ms,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    fewer = prof["block"]["device_kernels"] - prof["dots"]["device_kernels"]
+    print(f"{label}: one profiled step each: {json.dumps(prof)}; \"dots\" "
+          f"launches {fewer} device kernels fewer ({fewer / L:g} a layer; it "
+          f"saves {saved} products a layer)")
+    require(fewer >= L, (label, "dots saved too few kernels", fewer, L))
+
+
+def train_dots_path(dev):
+    """Phase 6e: ``remat="dots"`` (``lm._dots_policy``: the outputs of the
+    products with no batch dimension saved, the rest recomputed) at full
+    width and depth. internlm2-1.8b: TRAIN_STEPS steps through the
+    trainer's loop with the counts of ``"block"``, RMSNorm 4L + 1 forwards
+    and 2L + 1 backwards a step (the kernels launch through ``ctypes``,
+    which the selective checkpoint does not see, so they are recomputed);
+    gradients against ``"block"``; a step of each timed and profiled.
+    mamba2-130m: one step with phase 6b's counts for one step (the SSD
+    chunk kernel's ``autograd.Function`` recomputed under the selective
+    checkpoint), gradients against ``"block"``. Returns the launch counts
+    by path."""
+    from repro_torch import configs
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, n_steps, ssd, path in ((ARCH, TRAIN_STEPS, False,
+                                      "train-internlm2-dots"),
+                                     (SSM_ARCH, 1, True, "train-mamba2-dots")):
+        cfg = dataclasses.replace(configs.get(arch), remat="dots")
+        L = cfg.num_layers
+        expect = {k: 0 for k in launch_counters()}
+        expect.update(rmsnorm=(4 * L + 1) * n_steps,
+                      rmsnorm_bwd=(2 * L + 1) * n_steps)
+        if ssd:
+            expect.update(ssd=2 * L * n_steps, ssd_tc=2 * L * n_steps,
+                          ssd_bwd=L * n_steps, ssd_bwd_tc=L * n_steps)
+        out[path] = dots_compare(dev, cfg, expect, n_steps,
+                                 f"train {arch} dots", profile=not ssd)
+    print(f"train dots: phase 6e {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def resume_check(dev):
@@ -3525,6 +3711,7 @@ def main() -> int:
                "train-granite-moe": train_moe_path(dev),
                "train-qwen2-moe-reduced": train_moe_reduced(dev),
                "train-jamba-reduced": train_hybrid_path(dev),
+               **train_dots_path(dev),
                "lm-workflow": lm_workflow_path(dev),
                "paper-workflows": paper_workflows_path(dev),
                "fleet": fleet_path(dev, smi),

@@ -65,7 +65,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     # --- execution hints (overridable per run) ------------------------------
-    remat: str = "block"          # none | block | full
+    remat: str = "block"          # none | block | full | dots
     scan_layers: bool = True
     attn_impl: str = "chunked"    # reference | chunked | flash (Pallas, TPU)
     grad_accum: int = 1           # microbatches per train step

@@ -15,8 +15,16 @@ wrappers take their plain versions. ``ring_update`` and
 ``cross_attn_block`` is the audio family's cross-attention over the
 encoder output (whisper), always through the plain ``"reference"``
 attention, as in the reference.
+
+Every product with no batch dimension (the q/k/v/o projections and the
+MLP) goes through ``project``, one ``mm`` on 2-D views, so that
+``remat="dots"`` can tell it by its op from the batched products
+(attention's logits and PV, the experts, the SSD scan), which run as
+``bmm`` (``models/lm.py`` ``_dots_policy``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -27,10 +35,22 @@ from ..kernels.flash_attention.ops import GLOBAL_WINDOW
 from ..kernels.rmsnorm import ops as rmsnorm_ops
 from .params import P
 
-__all__ = ["GLOBAL_WINDOW", "rmsnorm_defs", "rmsnorm", "rope_freqs",
-           "apply_rope", "attention_defs", "gqa_attention", "attn_block",
-           "ring_update", "attn_block_ring", "cross_attn_block", "mlp_defs",
-           "mlp_block"]
+__all__ = ["GLOBAL_WINDOW", "project", "rmsnorm_defs", "rmsnorm",
+           "rope_freqs", "apply_rope", "attention_defs", "gqa_attention",
+           "attn_block", "ring_update", "attn_block_ring", "cross_attn_block",
+           "mlp_defs", "mlp_block"]
+
+
+# --------------------------------------------------------------------------- product
+def project(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
+    """``x`` (..., *w.shape[:n_in]) contracted with ``w`` over those
+    ``n_in`` dims: (..., *w.shape[n_in:]), as one ``mm`` of 2-D views
+    ("bsd,dhk->bshk" with ``n_in`` 1, "bshk,hkd->bsd" with 2). As an
+    einsum it would run as a ``bmm`` with a batch of 1, the op of the
+    batched products."""
+    k = math.prod(w.shape[:n_in])
+    out = torch.mm(x.reshape(-1, k), w.reshape(k, -1))
+    return out.reshape(*x.shape[:x.dim() - n_in], *w.shape[n_in:])
 
 
 # --------------------------------------------------------------------------- norm
@@ -212,9 +232,9 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     written in place into ``kv_cache``'s tensors, which are returned.
     """
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project(x, p["wq"])
+    k = project(x, p["wk"])
+    v = project(x, p["wv"])
     if cfg.use_bias:
         q = q + p["bq"]
         k = k + p["bk"]
@@ -247,7 +267,7 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     out = gqa_attention(q, k_full, v_full, positions, k_pos,
                         causal=causal, window=window, valid_len=valid,
                         impl=cfg.attn_impl)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), new_cache
+    return project(out, p["wo"], 2), new_cache
 
 
 def ring_update(kc: torch.Tensor, vc: torch.Tensor, kpc: torch.Tensor,
@@ -301,9 +321,9 @@ def attn_block_ring(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     """
     s = x.shape[1]
     kc, vc, kpc = ring
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project(x, p["wq"])
+    k = project(x, p["wk"])
+    v = project(x, p["wv"])
     if cfg.use_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -320,7 +340,7 @@ def attn_block_ring(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = gqa_attention(q, k, v, positions, positions, causal=True,
                             window=window, impl=cfg.attn_impl)
         ring_update(kc, vc, kpc, k, v, cache_pos)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), (kc, vc, kpc)
+    return project(out, p["wo"], 2), (kc, vc, kpc)
 
 
 def cross_attn_block(cfg, p: dict, x: torch.Tensor, enc: torch.Tensor
@@ -333,14 +353,14 @@ def cross_attn_block(cfg, p: dict, x: torch.Tensor, enc: torch.Tensor
     ``bq``/``bk``/``bv`` biases of a ``use_bias`` config are not added
     here."""
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", enc, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", enc, p["wv"])
+    q = project(x, p["wq"])
+    k = project(enc, p["wk"])
+    v = project(enc, p["wv"])
     q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     k_pos = torch.zeros((b, enc.shape[1]), dtype=torch.int32, device=x.device)
     out = gqa_attention(q, k, v, q_pos, k_pos, causal=False, window=None,
                         impl="reference")
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return project(out, p["wo"], 2)
 
 
 # --------------------------------------------------------------------------- mlp
@@ -353,5 +373,5 @@ def mlp_defs(d: int, d_ff: int) -> dict:
 
 
 def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    h = F.silu(project(x, p["w_gate"])) * project(x, p["w_up"])
+    return project(h, p["w_down"])

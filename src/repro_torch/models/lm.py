@@ -36,19 +36,22 @@ FFN where ``cfg.layer_is_moe`` says, counted within the group.
 For training, each layer of the dense, MoE and ssm stacks, and each
 group of the hybrid stack, runs under ``torch.utils.checkpoint`` where
 the reference wraps its scan body in ``jax.checkpoint`` (``_maybe_remat``,
-``cfg.remat``), and only where grad mode is on and there is no cache, so
-serving is unchanged. The ssm and hybrid families train through the SSD
-chunk kernel and its backward kernel, the MoE and hybrid families through
-``moe_block``'s gather-only backward. A recompute routes as the forward
-did: it runs the same arithmetic on the same inputs, so its top-k picks
-are the forward's (the CPU tests and the card hold them alike), and the
-aux loss rides in the checkpointed function's outputs.
+``cfg.remat``: ``"block"`` saves the body's inputs, ``"dots"`` also the
+outputs of its products with no batch dimension, through selective
+activation checkpointing), and only where grad mode is on and there is
+no cache, so serving is unchanged. The ssm and hybrid families train
+through the SSD chunk kernel and its backward kernel, the MoE and hybrid
+families through ``moe_block``'s gather-only backward. A recompute routes
+as the forward did: it runs the same arithmetic on the same inputs, so
+its top-k picks are the forward's (the CPU tests and the card hold them
+alike), and the aux loss rides in the checkpointed function's outputs.
 
 The audio family is an encoder-decoder and lives in ``encdec.py``
 (``registry`` dispatches to it); ``lm.py`` refuses its configs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple
 
 import torch
@@ -238,20 +241,45 @@ def embed_lookup(cfg: ArchConfig, table: torch.Tensor, tokens: torch.Tensor
     return table.to(torch.bfloat16)[tokens.long()]
 
 
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """The twin of ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``
+    for ``create_selective_checkpoint_contexts``: save the output of every
+    product with no batch dimension, recompute everything else. Those
+    products are the ones that run as ``mm`` (``layers.project``, and
+    ``x @ W`` with a 2-D ``W``: the MLP, the Mamba-2 projections, the MoE
+    router and shared gate). A ``torch.einsum`` of such a product would run
+    as a ``bmm`` with a batch of 1, the op of the batched products
+    (attention's logits and PV, the experts, the plain SSD scan), which
+    the reference recomputes: so ``bmm`` is never saved."""
+    if op in _SAVED_BY_DOTS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _maybe_remat(fn, cfg: ArchConfig):
     """``fn`` under the activation checkpointing ``cfg.remat`` names:
     ``"none"`` keeps it as it is; ``"block"`` (and ``"full"``, which the
     reference treats alike) recomputes it in the backward, saving only its
-    inputs (``jax.checkpoint``'s default). ``"dots"`` (save the matmuls'
-    outputs) has no torch checkpoint policy yet."""
+    inputs (``jax.checkpoint``'s default); ``"dots"`` also saves the
+    outputs of its products with no batch dimension (``_dots_policy``)
+    and recomputes the rest. A torch without selective checkpointing
+    cannot run ``"dots"``, and raises."""
     if cfg.remat == "none":
         return fn
+    kwargs = {}
     if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' has no torch checkpoint policy yet "
-            "(ROADMAP queue 1 item 10d)")
+        make = getattr(torch.utils.checkpoint,
+                       "create_selective_checkpoint_contexts", None)
+        if make is None:
+            raise NotImplementedError(
+                f"remat='dots' needs torch.utils.checkpoint's selective "
+                f"checkpointing, which torch {torch.__version__} lacks")
+        kwargs["context_fn"] = functools.partial(make, _dots_policy)
     return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False)
+        fn, *args, use_reentrant=False, **kwargs)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,

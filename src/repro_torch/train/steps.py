@@ -5,8 +5,11 @@
 ``cfg.grad_accum`` microbatches with fp32 accumulators, global-norm
 clipping, the 1-indexed warmup-cosine schedule and AdamW (fp32 moments).
 Gradients come from ``torch.autograd``; the RMSNorm kernel contributes
-its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and the
-dense stack checkpoints each layer as ``cfg.remat`` says (``models/lm.py``).
+its own backward kernel (``kernels/rmsnorm/ops.py`` ``RMSNormFn``), and
+every stack checkpoints each layer (the hybrid stack each group, whisper
+each encoder and decoder layer) as ``cfg.remat`` says: ``"none"``,
+``"block"`` or ``"dots"``, which also keeps the outputs of the products
+with no batch dimension (``models/lm.py`` ``_maybe_remat``).
 Every family trains (the vlm batch adds ``vision_embeds`` and
 ``mrope_positions``, the audio batch ``frames``, each split into
 microbatches as the reference splits them); the ssm and hybrid families'

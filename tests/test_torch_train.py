@@ -233,18 +233,18 @@ def test_grad_accum_equivalent():
 
 def test_remat_block_gives_the_same_gradients_as_none():
     """Recomputing each layer in the backward is the same arithmetic, so
-    the gradients are the same bits."""
+    the gradients are the same bits; so is recomputing it but for the
+    saved products (``"dots"``, ``tests/test_torch_remat.py``)."""
     _, host = _reference_state()
     params = convert.params_from_numpy(host.params)
     batch = {"tokens": torch.from_numpy(_tokens(6))}
-    _, g_block = tsteps.value_and_grad(tiny(tconfigs, remat="block"), params,
-                                       batch)
     _, g_none = tsteps.value_and_grad(tiny(tconfigs, remat="none"), params,
                                       batch)
-    for a, b in zip(tree_leaves(g_block), tree_leaves(g_none)):
-        assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="dots"):
-        tsteps.value_and_grad(tiny(tconfigs, remat="dots"), params, batch)
+    for remat in ("block", "dots"):
+        _, g = tsteps.value_and_grad(tiny(tconfigs, remat=remat), params,
+                                     batch)
+        for a, b in zip(tree_leaves(g), tree_leaves(g_none), strict=True):
+            assert torch.equal(a, b), remat
 
 
 def test_remat_counts_one_recomputed_forward_per_norm():
