@@ -115,6 +115,15 @@ Phases (any failure exits non-zero; none is caught and passed over):
      peak memory and the card's busy share (one profiled step, its top
      kernels); then the resume check at reduced size: 4 steps with a
      segment at 2, a restart from step 2, bitwise the uninterrupted run;
+  6f. the sharding substrate on the card: ``make_local_mesh`` twice (one
+     nccl group of world size 1 from an in-process store, the second call
+     reusing it; a (1, 1) mesh on cuda:0), internlm2-1.8b's specs at full
+     width under TRAIN_2D and SERVE all replicated, then one step of phase
+     6's config with the train state placed on the mesh as DTensors
+     (their local tensors the tensors themselves) under ``use_mesh``:
+     RMSNorm 4L + 1 / 2L + 1 launches, loss, grad norm and every updated
+     param bitwise the same step with no mesh, peak memory within 0.5 GB
+     of phase 6's; the process group destroyed at the end;
   6b. the same for mamba2-130m at full width and depth (24 layers,
      d_model 768, chunk 128): the SSD chunk kernel (twice a layer a step
      under remat, all tensor-core) and its backward kernel (once), the
@@ -346,6 +355,9 @@ REDUCED_SEQ = 128
 # output reads O(1)
 DOTS_GRAD_TOL = 1e-3
 TRAIN_PEAK_GB = {}   # phase 6's peak memory by config name, for phase 6e
+TRAIN_FIRST_STEP = {}  # phase 6's first step's metrics by config name (6f)
+# phase 6f: the one-card mesh's train step may peak this much above phase 6
+MESH_PEAK_SLACK_GB = 0.5
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
@@ -2287,6 +2299,7 @@ def train_compare(dev, cfg, expect, plain, floor, pick, label,
             "a train loss is not finite")
     require(kern.metrics[-1]["step"] == TRAIN_STEPS, kern.metrics[-1])
     kern_metrics = kern.metrics
+    TRAIN_FIRST_STEP[cfg.name] = kern.metrics[0]
     del kern                                 # frees its state
     calls = 1 if cfg.remat == "none" else 2
     if routed:
@@ -2404,6 +2417,148 @@ def train_path(dev):
         (plain_kernels(), dataclasses.replace(cfg, attn_impl="reference")),
         _norm_grads, "train")
     resume_check(dev)
+    return launches
+
+
+def train_mesh_path(dev):
+    """Phase 6f: the sharding substrate on one card. ``make_local_mesh``
+    twice (one nccl group of world size 1, reused; a (1, 1) mesh named
+    ("data", "model") on cuda:0); internlm2-1.8b's specs at full width
+    under TRAIN_2D and SERVE on it, every entry None and every placement
+    ``Replicate()``; then one train step of phase 6's config through the
+    trainer's loop twice from the same init and batch: with no mesh
+    (its loss, grad norm and updated params kept, the params on the host),
+    then with the state placed on the mesh (``launch.train.state_shardings``
+    and ``models.params.place``, each DTensor's local tensor the tensor it
+    was made from) under ``use_mesh``, the main path, with the counts set
+    to 0 just before it and read just after: RMSNorm 4L + 1 forwards and
+    2L + 1 backwards, no other launch; its loss, grad norm and every
+    updated param bitwise the meshless step's, its peak memory within
+    MESH_PEAK_SLACK_GB of phase 6's. The process group is destroyed at the
+    end. Returns the launch counts."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch import configs
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.launch import mesh as mesh_lib, train
+    from repro_torch.models import params as params_lib, registry
+    from repro_torch.sharding import rules
+    from repro_torch.sharding.activation import axis_sizes, use_mesh
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group runs before phase 6f")
+    try:
+        first = mesh_lib.make_local_mesh(dev)
+        group = dist.group.WORLD
+        second = mesh_lib.make_local_mesh(dev)
+        reused = dist.group.WORLD is group
+        on = f"{first.device_type}:{torch.cuda.current_device()}"
+        print(f"train mesh: backend {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}; mesh {axis_sizes(first)} shape "
+              f"{tuple(first.shape)} names {first.mesh_dim_names} on {on}; "
+              f"the second call reused the group: {reused}, gave an equal "
+              f"mesh: {first == second} ({axis_sizes(second)})")
+        for m in (first, second):
+            require(tuple(m.shape) == (1, 1)
+                    and m.mesh_dim_names == ("data", "model")
+                    and m.device_type == "cuda" and on == "cuda:0",
+                    ("the local mesh", m))
+        require(reused and first == second and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1, "the local mesh's group")
+        mesh = first
+
+        cfg = configs.get(ARCH)
+        L = cfg.num_layers
+        defs = registry.param_defs(cfg)
+        n_defs = len(tree_leaves(defs))
+        for name in ("train_2d", "serve"):
+            sh = tree_leaves(params_lib.shardings_for(defs, mesh,
+                                                      rules.RULESETS[name]))
+            require(len(sh) == n_defs
+                    and all(e is None for s in sh for e in s.spec)
+                    and all(p == Replicate() for s in sh
+                            for p in s.placements), (name, "not replicated"))
+            print(f"train mesh: {cfg.name} under {name}: {len(sh)} leaves, "
+                  f"every spec entry None, every placement Replicate()")
+
+        tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
+                                 cfg.vocab_size)
+        batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
+
+        def init():
+            return steps.init_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+        def one_step(state):
+            return train.train(cfg, state, batcher, 0, 1, lr=TRAIN_LR,
+                               total_steps=TRAIN_TOTAL, device=dev,
+                               log_every=1)
+
+        t0 = time.perf_counter()
+        plain = one_step(init())
+        want = plain.metrics[0]
+        want_params = tree_map(lambda t: t.cpu(), plain.state.params)
+        del plain
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        phase6 = TRAIN_FIRST_STEP.get(cfg.name, {})
+        print(f"train mesh: the meshless step, {time.perf_counter() - t0:.1f} s "
+              f"with its init and the params' copy to the host: loss "
+              f"{want['loss']!r} grad norm {want['grad_norm']!r}; phase 6's "
+              f"first step: loss {phase6.get('loss')!r} grad norm "
+              f"{phase6.get('grad_norm')!r}")
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = init()
+        placed = params_lib.place(state, train.state_shardings(cfg, mesh))
+        made, on_mesh = tree_leaves(state), tree_leaves(placed)
+        aliased = len(made) == len(on_mesh) and all(
+            isinstance(d, DTensor) and d.to_local().untyped_storage().data_ptr()
+            == t.untyped_storage().data_ptr() for t, d in zip(made, on_mesh))
+        nbytes = sum(t.numel() * t.element_size() for t in made)
+        del state, made
+        print(f"train mesh: placed {len(on_mesh)} leaves, {nbytes / 1e9:.3f} "
+              f"GB (params, both moments, step) under train_2d; every "
+              f"local tensor the storage it was made from: {aliased}")
+        require(aliased, "a placed leaf does not alias its tensor")
+
+        counters = launch_counters()
+        torch.cuda.synchronize()
+        _reset(counters)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            res = one_step(placed)             # the main path
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _read(counters)
+        peak_gb = round(torch.cuda.max_memory_allocated(dev) / 1e9, 2)
+        del placed, on_mesh
+        got = res.metrics[0]
+        same = {"loss": got["loss"] == want["loss"],
+                "grad_norm": got["grad_norm"] == want["grad_norm"],
+                "params": same_bits(res.state.params, want_params)}
+        del res, want_params
+        torch.cuda.empty_cache()
+        expect = {k: 0 for k in counters}
+        expect.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
+        limit = TRAIN_PEAK_GB[cfg.name] + MESH_PEAK_SLACK_GB
+        print(f"train mesh: the step on the mesh {step_s * 1e3:.1f} ms "
+              f"(host clock, the trainer's loop, ending in a sync); loss "
+              f"{got['loss']!r} grad norm {got['grad_norm']!r}; bitwise the "
+              f"meshless step: {same}; launches {launches}; peak memory "
+              f"{peak_gb:.2f} GB (phase 6: {TRAIN_PEAK_GB[cfg.name]:.2f} GB)")
+        require(launches == expect, ("mesh launches", launches, expect))
+        require(all(same.values()), ("the step on the mesh differs", same))
+        require(peak_gb <= limit, ("mesh peak memory", peak_gb, limit))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    require(not dist.is_initialized(), "the process group outlived phase 6f")
+    print(f"train mesh: phase 6f {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3707,6 +3862,7 @@ def main() -> int:
                AUDIO_ARCH: serve_audio(dev),
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
+               "train-internlm2-mesh": train_mesh_path(dev),
                "train-mamba2": train_ssm_path(dev),
                "train-granite-moe": train_moe_path(dev),
                "train-qwen2-moe-reduced": train_moe_reduced(dev),

@@ -20,7 +20,9 @@ into pinned host memory and copied without blocking, and the load waits
 for those copies before it reports its seconds. The memory tier follows
 the same rule, so the device a hit comes back on does not depend on
 whether the async offload has landed. Non-array leaves are pickled.
-(DTensor placements across a mesh come with the distributed substrate.)
+(A DTensor's placements are not stored: the launchers place a restored
+tree on the mesh with ``models.params.place``, and sharded saves and
+restores are ROADMAP queue 1 item 9d.)
 
 Device copies (the synchronous snapshot of a save, the memory tier's
 async offload on the writer thread, placements) all run on the legacy

@@ -5,8 +5,8 @@ Determinism contract (fault tolerance): batch ``i`` of run ``seed`` is a
 pure function of ``(seed, i)``: any restarted job reproduces the exact
 token stream, so a restored checkpoint continues on the *same* data order.
 ``TokenBatcher`` is the reference's, copied (pure numpy); ``batch_to``
-stands in for ``device_put_batch`` on one device. Sharded placement comes
-with the distributed substrate (ROADMAP queue 1 item 9).
+stands in for ``device_put_batch`` on one device. Sharded placement of a
+batch across a mesh is ROADMAP queue 1 item 9d.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
 # Launch layer: the serve and train entry points
-# (``python -m repro_torch.launch.serve`` / ``.train``) and the LM
-# workflow's memory-tier check (``.bench_tier``). The mesh and dry-run
-# launchers come with the distributed substrate.
+# (``python -m repro_torch.launch.serve`` / ``.train``, both on the local
+# mesh of ``.mesh``), and the LM workflow's memory-tier check
+# (``.bench_tier``). The shape and dry-run launchers are ROADMAP queue 1
+# item 9b.

@@ -5,12 +5,18 @@ Twin of the JAX package's ``launch/serve.py``, with two more flags:
 ``--attn-impl`` (default ``flash``, so prefill goes through the
 FlashAttention kernel; the ssm family has no attention and ignores it).
 ``run`` is the library entry point; ``main`` and ``chip_smoke.py`` both
-call it. It serves the dense family, its windowed configs among them
-(gemma3-4b: ring KV caches for the local layers, flash at head_dim 256 in
-prefill), the MoE family (granite-moe-1b-a400m, qwen2-moe-a2.7b: every
-layer's FFN is ``models/moe.py`` ``moe_block``, whose capacity follows the
-tokens of each call, so a decode step of batch 4 runs with capacity 1 per
-expert and drops assignments, as the reference does), the vlm family
+call it. As in the reference, ``main`` serves on the local mesh
+(``launch.mesh``, (1, 1) on the chosen device): the params are placed on
+it under ``rules.SERVE`` (``models.params.place``; at one device each
+DTensor's local tensor is the tensor itself) and ``run`` goes inside
+``use_mesh(mesh)``, stepping the local tensors, so the tokens and the
+launches are those of a run without a mesh. It serves the dense family,
+its windowed configs among them (gemma3-4b: ring KV caches for the local
+layers, flash at head_dim 256 in prefill), the MoE family
+(granite-moe-1b-a400m, qwen2-moe-a2.7b: every layer's FFN is
+``models/moe.py`` ``moe_block``, whose capacity follows the tokens of
+each call, so a decode step of batch 4 runs with capacity 1 per expert
+and drops assignments, as the reference does), the vlm family
 (qwen2-vl-7b: the prefill batch carries ``vision_embeds`` and the three
 M-RoPE streams; ``main`` builds them as the reference's launcher does, a
 zero 4-patch prefix and three equal streams, and decode passes neither),
@@ -46,7 +52,11 @@ from ..data import synth
 from ..device import resolve
 from ..models import registry
 from ..models.config import ArchConfig
+from ..models.params import local, place, shardings_for
+from ..sharding import rules
+from ..sharding.activation import axis_sizes, use_mesh
 from ..train import steps
+from .mesh import local_mesh
 
 
 @dataclasses.dataclass
@@ -70,10 +80,13 @@ def run(cfg: ArchConfig, params: Any, prompts, gen_tokens: int, *,
         frames: torch.Tensor | None = None) -> ServeResult:
     """Prefill ``prompts`` (B, S) and decode ``gen_tokens`` greedy tokens
     (the first comes from the prefill logits). ``params`` must live on
-    ``device`` (default ``cuda``). The vlm family's ``vision_embeds`` (B,
-    npatch, D) and ``mrope_positions`` (3, B, S), and the audio family's
-    ``frames`` (B, S_enc, D), go into the prefill batch only."""
+    ``device`` (default ``cuda``), as plain tensors or as DTensors from
+    ``place`` (their local tensors are served). The vlm family's
+    ``vision_embeds`` (B, npatch, D) and ``mrope_positions`` (3, B, S),
+    and the audio family's ``frames`` (B, S_enc, D), go into the prefill
+    batch only."""
     dev = resolve(device)
+    params = local(params)
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32).to(dev)
     batch = {"tokens": tokens}
     for key, t in (("vision_embeds", vision_embeds),
@@ -124,9 +137,6 @@ def main(argv: list[str] | None = None) -> ServeResult:
     if cfg.family == "audio":
         raise SystemExit("use an LM-family arch for serve (enc-dec decode "
                          "is exercised in tests)")
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = registry.init(cfg, gen, dev)
-
     toks = synth.lm_tokens(args.seed, args.batch * args.prompt_len + 1,
                            cfg.vocab_size)
     prompts = toks[:args.batch * args.prompt_len].reshape(
@@ -139,11 +149,19 @@ def main(argv: list[str] | None = None) -> ServeResult:
             "mrope_positions": torch.arange(
                 args.prompt_len, dtype=torch.int32, device=dev).expand(
                     3, args.batch, args.prompt_len)}
-    res = run(cfg, params, prompts, args.gen_tokens, device=dev, **vision)
+    with local_mesh(dev) as mesh:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = place(registry.init(cfg, gen, dev), shardings_for(
+            registry.param_defs(cfg), mesh, rules.SERVE))
+        with use_mesh(mesh):
+            res = run(cfg, params, prompts, args.gen_tokens, device=dev,
+                      **vision)
+        sizes = axis_sizes(mesh)
 
     tok_s = args.batch * (args.gen_tokens - 1) / max(res.decode_s, 1e-9)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"gen={args.gen_tokens} device={dev} attn_impl={cfg.attn_impl}")
+          f"gen={args.gen_tokens} device={dev} attn_impl={cfg.attn_impl} "
+          f"mesh={sizes}")
     print(f"prefill {res.prefill_s*1e3:.1f} ms; decode {res.decode_s*1e3:.1f} ms "
           f"({tok_s:.1f} tok/s)")
     print("first sequence:", res.tokens[0][:16].tolist())

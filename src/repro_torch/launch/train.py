@@ -11,14 +11,21 @@ A per-step watchdog flags stragglers via z-score on step time.
 The reference's flags, plus ``--device`` (default ``cuda``; asking for it
 without a card raises) and ``--full`` (the published config, which is also
 the default, as in the reference; ``--reduced`` runs the same code path at
-smoke size). There is no mesh: ``--production-mesh`` raises until the
-distributed substrate is ported.
+smoke size). As in the reference, ``main`` builds the local mesh
+(``launch.mesh``: ("data", "model") of shape (1, 1) on the chosen device),
+resolves the train state's specs under ``rules.TRAIN_2D``, places the
+state on the mesh (``models.params.place``: at one device each DTensor's
+local tensor is the tensor itself) and runs the loop inside
+``use_mesh(mesh)``. The step runs on the local tensors, so its bits and
+launches are those of a run without a mesh. ``--production-mesh`` raises:
+it needs the sharded checkpoint and data paths (ROADMAP queue 1 item 9d).
 
     python -m repro_torch.launch.train --device cpu --reduced --steps 20
     python -m repro_torch.launch.train --arch internlm2-1.8b --full --batch 4 --seq 512
 
 ``train`` is the library entry point: it runs steps ``[start, stop)`` of a
-run from a given state and is what ``main`` and ``chip_smoke.py`` call.
+run from a given state (plain tensors, or DTensors from ``place``, whose
+local tensors it steps) and is what ``main`` and ``chip_smoke.py`` call.
 """
 from __future__ import annotations
 
@@ -37,8 +44,14 @@ from ..core.store import Store
 from ..data import synth
 from ..data.pipeline import TokenBatcher, batch_to
 from ..device import resolve
+from ..models import registry
 from ..models.config import ArchConfig
+from ..models.params import NamedSharding, local, place, shardings_for
+from ..optim import adamw
+from ..sharding import rules
+from ..sharding.activation import axis_sizes, use_mesh
 from ..train import steps
+from .mesh import local_mesh
 
 
 class Watchdog:
@@ -77,6 +90,7 @@ def train(cfg: ArchConfig, state: steps.TrainState, batcher: TokenBatcher,
     ``batcher.batch_at(i)``, the schedule warms up over 20 steps and decays
     to ``total_steps``; with ``ckpt``, the state after every
     ``segment_steps``-th step is saved asynchronously."""
+    state = local(state)
     dog = Watchdog()
     losses, history, times = [], [], []
     for step in range(start, stop):
@@ -105,6 +119,15 @@ def train(cfg: ArchConfig, state: steps.TrainState, batcher: TokenBatcher,
                        step_s=times, start_step=start)
 
 
+def state_shardings(cfg: ArchConfig, mesh) -> steps.TrainState:
+    """The train state's shardings on ``mesh`` under ``rules.TRAIN_2D``:
+    the params' specs for the params and both moments, the step
+    replicated (the reference's launcher)."""
+    pshard = shardings_for(registry.param_defs(cfg), mesh, rules.TRAIN_2D)
+    return steps.TrainState(params=pshard, opt=adamw.AdamWState(
+        m=pshard, v=pshard, step=NamedSharding(mesh, ())))
+
+
 def main(argv: list[str] | None = None) -> TrainResult:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="helix100m")
@@ -127,39 +150,42 @@ def main(argv: list[str] | None = None) -> TrainResult:
 
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh comes with the distributed substrate "
-            "(ROADMAP queue 1 item 9)")
+            "--production-mesh needs a sharded train step and the sharded "
+            "checkpoint and data paths (ROADMAP queue 1 item 9d, after 9c)")
     dev = resolve(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = configs.reduced(cfg)
-    print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
-          f"mesh=none devices=1 device={dev}")
+    with local_mesh(dev) as mesh:
+        print(f"arch={cfg.name} params≈{cfg.param_count()/1e6:.1f}M "
+              f"mesh={axis_sizes(mesh)} devices={mesh.size()} device={dev}")
 
-    tokens = synth.lm_tokens(args.seed, max(2_000_000,
-                                            args.batch * (args.seq + 1) * 4),
-                             cfg.vocab_size)
-    batcher = TokenBatcher(tokens, args.batch, args.seq, seed=args.seed)
+        tokens = synth.lm_tokens(args.seed, max(
+            2_000_000, args.batch * (args.seq + 1) * 4), cfg.vocab_size)
+        batcher = TokenBatcher(tokens, args.batch, args.seq, seed=args.seed)
 
-    store = Store(os.path.join(args.workdir, "store"))
-    ckpt = CheckpointManager(store, run_name=f"{cfg.name}-s{args.seed}")
+        store = Store(os.path.join(args.workdir, "store"))
+        ckpt = CheckpointManager(store, run_name=f"{cfg.name}-s{args.seed}")
 
-    start_step = 0
-    if args.resume:
-        latest = ckpt.latest_step()
-        if latest is not None:
-            state = ckpt.restore(latest,
-                                 sharding_for_leaf=lambda i, shape, dtype: dev)
-            start_step = latest
-            print(f"resumed from step {latest} (restored onto {dev})")
-    if start_step == 0:
-        state = steps.init_train_state(
-            cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        start_step = 0
+        if args.resume:
+            latest = ckpt.latest_step()
+            if latest is not None:
+                state = ckpt.restore(
+                    latest, sharding_for_leaf=lambda i, shape, dtype: dev)
+                start_step = latest
+                print(f"resumed from step {latest} (restored onto {dev})")
+        if start_step == 0:
+            state = steps.init_train_state(
+                cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        state = place(state, state_shardings(cfg, mesh))
 
-    res = train(cfg, state, batcher, start_step, args.steps, lr=args.lr,
-                total_steps=args.steps, device=dev, ckpt=ckpt,
-                segment_steps=args.segment_steps, log_every=args.log_every)
-    ckpt.wait()
+        with use_mesh(mesh):
+            res = train(cfg, state, batcher, start_step, args.steps,
+                        lr=args.lr, total_steps=args.steps, device=dev,
+                        ckpt=ckpt, segment_steps=args.segment_steps,
+                        log_every=args.log_every)
+        ckpt.wait()
     if res.losses:
         print(f"done: loss {res.losses[0]:.3f} → {res.losses[-1]:.3f} "
               f"({args.steps - start_step} steps)")

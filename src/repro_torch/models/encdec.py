@@ -24,6 +24,10 @@ of 8 to 512 rows that divides the length and computes the plain
 ``_pick_block``); the port's wrapper has no off-tile fallback and launches
 the kernel, which masks the ragged last tile itself. Both compute the same
 function.
+
+The residual streams and the logits go through ``constrain`` where the
+reference constrains them: a no-op returning its input on a mesh of one
+device and with none.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..sharding.activation import batch_axes, constrain
 from . import layers
 from .config import ArchConfig
 from .lm import _maybe_remat, _stack, _unstack, embed_lookup
@@ -99,6 +104,7 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
     under RoPE at positions 0..S_enc − 1, then ``enc_norm``."""
     b, s, _ = frames.shape
     h = frames.to(torch.bfloat16) @ params["frame_proj"]
+    h = constrain(h, batch_axes(), None, None)
     positions = torch.arange(s, dtype=torch.int32,
                              device=frames.device).expand(b, s)
 
@@ -107,8 +113,9 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
         out, _ = layers.attn_block(cfg, p["attn"], x, positions, window=None,
                                    causal=False)
         h = h + out
-        return h + layers.mlp_block(
+        h = h + layers.mlp_block(
             p["mlp"], layers.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        return constrain(h, batch_axes(), None, None)
 
     if torch.is_grad_enabled():
         body = _maybe_remat(body, cfg)
@@ -129,6 +136,7 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     base = cache["pos"] if has_cache else 0
     positions = torch.arange(base, base + s, dtype=torch.int32,
                              device=tokens.device).expand(b, s)
+    h = constrain(h, batch_axes(), None, None)
 
     def body(h, p, kv_cache):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
@@ -138,8 +146,9 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
         h = h + out
         x = layers.rmsnorm(h, p["lnx"], cfg.norm_eps)
         h = h + layers.cross_attn_block(cfg, p["xattn"], x, enc_out)
-        return h + layers.mlp_block(
+        h = h + layers.mlp_block(
             p["mlp"], layers.rmsnorm(h, p["ln2"], cfg.norm_eps))
+        return constrain(h, batch_axes(), None, None)
 
     if torch.is_grad_enabled() and not has_cache:
         body = _maybe_remat(body, cfg)
@@ -152,6 +161,8 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
                      "pos": base + s}
     h = layers.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = torch.einsum("bsd,dv->bsv", h, params["lm_head"].to(h.dtype))
+    logits = constrain(logits, batch_axes(), None,
+                       None if "model" in batch_axes() else "model")
     return EncDecOut(logits=logits, cache=new_cache,
                      aux_loss=torch.zeros((), dtype=torch.float32,
                                           device=h.device))

@@ -46,6 +46,11 @@ as the forward did: it runs the same arithmetic on the same inputs, so
 its top-k picks are the forward's (the CPU tests and the card hold them
 alike), and the aux loss rides in the checkpointed function's outputs.
 
+The residual stream and the logits go through ``constrain`` where the
+reference constrains them (after the embedding, after each layer or
+group, the logits over the batch axes): under a mesh of one device, and
+with none, each call returns its input itself.
+
 The audio family is an encoder-decoder and lives in ``encdec.py``
 (``registry`` dispatches to it); ``lm.py`` refuses its configs.
 """
@@ -57,6 +62,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
+from ..sharding.activation import batch_axes, constrain
 from . import layers, moe as moe_lib, ssd as ssd_lib
 from .config import ArchConfig
 from .params import P, init_params, tree_map
@@ -305,6 +311,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(base, base + s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
+    h = constrain(h, batch_axes(), None, None)
 
     if cfg.family == "hybrid":
         h, new_cache, aux = _hybrid_stack(cfg, params, h, positions, cache)
@@ -320,6 +327,8 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
     logits = torch.einsum("bsd,dv->bsv", h, head.to(h.dtype))
+    logits = constrain(logits, batch_axes(), None,
+                       None if "model" in batch_axes() else "model")
     if new_cache is not None:
         new_cache["pos"] = base + s
     return LMOut(logits=logits, cache=new_cache, aux_loss=aux)
@@ -341,9 +350,10 @@ def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor, aux: torch.Tensor
     """The FFN the layer's parameters hold (the MoE block or the MLP, as
     its defs chose) added to the residual stream, and ``aux`` plus the MoE
     block's load-balancing loss. The MoE configs name
-    ``moe_impl="shard_map"``, an expert-parallel form that needs a mesh
-    (ROADMAP queue 1 item 9); without one the reference runs ``moe_block``,
-    and so does the port for every ``moe_impl``."""
+    ``moe_impl="shard_map"``, an expert-parallel form (ROADMAP queue 1 item
+    9c); without a mesh the reference runs ``moe_block``, on a mesh of one
+    device its ``shard_map`` form computes ``moe_block``'s function, and
+    the port runs ``moe_block`` for every ``moe_impl``."""
     if "moe" in p:
         x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
         out, a = moe_lib.moe_block(cfg.moe, p["moe"], x)
@@ -369,7 +379,8 @@ def _attn_stack(cfg, params, h, positions, cache, mrope_positions):
             cfg, p["attn"], x, positions, window=window, kv_cache=kv_cache,
             cache_pos=cache["pos"] if has_cache else None,
             mrope_positions=mrope_positions)
-        return _ffn(cfg, p, h + attn_out, aux)
+        h, aux = _ffn(cfg, p, h + attn_out, aux)
+        return constrain(h, batch_axes(), None, None), aux
 
     if torch.is_grad_enabled() and not has_cache:
         body = _maybe_remat(body, cfg)
@@ -414,9 +425,11 @@ def _windowed_stack(cfg, params, h, positions, cache):
             cfg, p["attn"], x, positions, window=None,
             kv_cache=(cache["kg"][gi, 0], cache["vg"][gi, 0]), cache_pos=base)
         h, aux = _ffn(cfg, p, h + out, aux)
+        h = constrain(h, batch_axes(), None, None)
     for i in range(tail):
         h, aux = local(blocks[ng * g + i], h, aux,
                        (cache["kt"][i], cache["vt"][i], cache["kpt"][i]))
+    h = constrain(h, batch_axes(), None, None)
     return h, dict(cache), aux
 
 
@@ -429,7 +442,8 @@ def _ssm_stack(cfg, params, h, positions, cache):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
         out, new_state = ssd_lib.ssm_block(cfg, cfg.ssm, p["ssm"], x, state,
                                            use_kernel=True)
-        return _ffn(cfg, p, h + out, aux) + (new_state,)
+        h, aux = _ffn(cfg, p, h + out, aux)
+        return constrain(h, batch_axes(), None, None), aux, new_state
 
     if torch.is_grad_enabled() and not has_cache:
         body = _maybe_remat(body, cfg)
@@ -479,7 +493,7 @@ def _hybrid_stack(cfg, params, h, positions, cache):
                     else None,
                     cache_pos=cache["pos"] if has_cache else None)
             h, aux = _ffn(cfg, p, h + out, aux)
-        return h, aux, states
+        return constrain(h, batch_axes(), None, None), aux, states
 
     def body(h, aux, gp, g):
         return group(h, aux, gp, g)[:2]

@@ -54,9 +54,10 @@ router's matmul, softmax and means (fixed-order reductions). So two
 backward passes on the same inputs give the same bits on the card.
 
 ``moe_block_sharded``/``moe_block_a2a`` (the reference's ``shard_map``
-and all-to-all forms) come with the distributed substrate (ROADMAP queue 1
-item 9); without a mesh the reference falls back to ``moe_block``, and
-``models/lm.py`` runs ``moe_block`` for every ``moe_impl``.
+and all-to-all forms) are ROADMAP queue 1 item 9c; without a mesh the
+reference falls back to ``moe_block`` (on a mesh of one device its
+``shard_map`` form computes the same function), and ``models/lm.py``
+runs ``moe_block`` for every ``moe_impl``.
 """
 from __future__ import annotations
 

@@ -1,18 +1,35 @@
 """Declarative parameter trees (twin of the JAX package's ``models/params.py``).
 
 A model is described once as a nested dict of :class:`P` leaves (shape,
-logical axis names, init, dtype); :func:`init_params` materializes it on a
-device from an explicit ``torch.Generator``. The tree layout is the
-reference's leaf for leaf, so weights cross between the packages through
-``convert.params_from_numpy``. ``param_specs``/``shardings_for`` come with
-the distributed substrate.
+logical axis names, init, dtype). From it:
+
+  * ``init_params`` materializes it on a device from an explicit
+    ``torch.Generator``. The tree layout is the reference's leaf for leaf,
+    so weights cross between the packages through
+    ``convert.params_from_numpy``.
+  * ``param_specs`` resolves each leaf's logical axes against a mesh's
+    axis names and sizes (a ``DeviceMesh`` or a plain ``{name: size}``)
+    with the reference's divisibility fallback: a logical axis binds a
+    mesh axis only when the axis is larger than 1, divides the dim and is
+    not used by an earlier dim of the tensor. This auto-selects EP vs
+    expert-TP for MoE weights and replicates 8-way KV heads on a 16-way
+    model axis. A spec is a tuple of entries (None, an axis name, or a
+    tuple of names), trailing Nones dropped, as a ``PartitionSpec``.
+  * ``shardings_for`` wraps each spec with its mesh (``NamedSharding``,
+    whose ``placements`` are DTensor's), and ``place`` puts a tree of
+    tensors on the mesh as DTensors. On a mesh of one device the DTensor's
+    local tensor is the tensor itself (the same storage) and nothing is
+    communicated; a mesh of more devices needs the sharded checkpoint and
+    data paths (ROADMAP queue 1 item 9d), and ``place`` raises there.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Mapping
 
 import torch
+
+from ..sharding.activation import axis_sizes, placements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +42,21 @@ class P:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+# Logical axis → preferred mesh axes, in priority order.
+DEFAULT_RULES: dict[str, tuple] = {
+    "vocab": ("model",),
+    "embed": ("data",),        # FSDP / ZeRO-3 over the data axis
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "mlp": ("model",),
+    "experts": ("model",),     # EP when divisible…
+    "expert_mlp": ("model",),  # …else expert-TP picks up the axis here
+    "ssm_inner": ("model",),
+    "layers": (),
+    "stage": (),
+}
 
 
 def tree_map(fn: Callable, tree: Any) -> Any:
@@ -54,3 +86,116 @@ def init_params(defs: Any, generator: torch.Generator,
         return (arr * scale).to(p.dtype)
 
     return tree_map(make, defs)
+
+
+def _resolve(p: P, sizes: Mapping[str, int],
+             rules: Mapping[str, tuple]) -> tuple:
+    """One leaf's spec (the reference's ``resolve``): per dim, its logical
+    axis's rule, the whole tuple tried first and then each single axis;
+    an option binds when none of its axes is used by an earlier dim, the
+    dim divides by its size and the size is above 1. The size is read
+    before the axes are checked against the mesh, so a rule naming an axis
+    the mesh lacks raises ``KeyError``, as in the reference."""
+    used: set = set()
+    entries: list = []
+    for dim, logical in zip(p.shape, p.axes):
+        cand = tuple(rules.get(logical, ())) if logical else ()
+        picked: tuple = ()
+        options = [cand] + [(c,) for c in cand] if len(cand) > 1 else [cand]
+        for opt in options:
+            if not opt:
+                continue
+            size = 1
+            for a in opt:
+                size *= sizes[a]
+            if all(a not in used and a in sizes for a in opt) \
+                    and dim % size == 0 and size > 1:
+                picked = tuple(opt)
+                break
+        used.update(picked)
+        if len(picked) == 0:
+            entries.append(None)
+        elif len(picked) == 1:
+            entries.append(picked[0])
+        else:
+            entries.append(picked)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def param_specs(defs: Any, mesh: Any,
+                rules: Mapping[str, tuple] | None = None) -> Any:
+    """The spec tree of a P-tree, resolved against ``mesh``: a
+    ``DeviceMesh`` or a ``{axis name: size}`` mapping (only names and
+    sizes are read, so no process group is needed). ``rules`` update
+    ``DEFAULT_RULES``. Each leaf of the result is a tuple of entries."""
+    return tree_map(_resolver(mesh, rules), defs)
+
+
+def _resolver(mesh: Any, rules: Mapping[str, tuple] | None) -> Callable:
+    """``P`` → its spec on ``mesh``, under ``rules`` over DEFAULT_RULES."""
+    rules = dict(DEFAULT_RULES, **(rules or {}))
+    sizes = axis_sizes(mesh)
+    return lambda p: _resolve(p, sizes, rules)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a ``DeviceMesh`` (the port's
+    ``jax.sharding.NamedSharding``)."""
+    mesh: Any
+    spec: tuple
+
+    @property
+    def placements(self) -> tuple:
+        return placements(self.spec, len(self.spec), self.mesh.mesh_dim_names)
+
+
+def shardings_for(defs: Any, mesh: Any,
+                  rules: Mapping[str, tuple] | None = None) -> Any:
+    """``param_specs`` on ``mesh`` (a ``DeviceMesh``), each spec wrapped as
+    a ``NamedSharding``."""
+    resolve = _resolver(mesh, rules)
+    return tree_map(lambda p: NamedSharding(mesh, resolve(p)), defs)
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """Each tensor of ``tree`` as a DTensor with the matching
+    ``NamedSharding`` of ``shardings`` (a tree of the same structure). On
+    a mesh of one device ``DTensor.from_local`` wraps the tensor as it is,
+    with no check and no collective: the local tensor shares its storage,
+    and ``local(place(tree, s))`` gives back tensors that alias ``tree``'s.
+    A leaf on another device type than its mesh raises (nothing is moved),
+    and so does a mesh of more devices (ROADMAP queue 1 item 9d)."""
+    from torch.distributed.tensor import DTensor
+
+    from ..core.tree import tree_map as tree_map_n
+
+    def one(leaf: torch.Tensor, sh: NamedSharding) -> torch.Tensor:
+        mesh = sh.mesh
+        if mesh.size() > 1:
+            raise NotImplementedError(
+                f"placing a tree on a mesh of {mesh.size()} devices needs "
+                f"the sharded checkpoint and data paths (ROADMAP queue 1 "
+                f"item 9d)")
+        if leaf.device.type != mesh.device_type:
+            raise ValueError(f"a leaf on {leaf.device} for a "
+                             f"{mesh.device_type} mesh: place moves nothing")
+        return DTensor.from_local(
+            leaf, mesh, placements(sh.spec, leaf.ndim, mesh.mesh_dim_names),
+            run_check=False)
+
+    return tree_map_n(one, tree, shardings)
+
+
+def local(tree: Any) -> Any:
+    """``tree`` with every DTensor replaced by its local tensor (which, on
+    a mesh of one device, is the whole tensor); other leaves as they are.
+    The train and serve steps run on what this returns."""
+    from torch.distributed.tensor import DTensor
+
+    from ..core.tree import tree_map as tree_map_n
+
+    return tree_map_n(
+        lambda t: t.to_local() if isinstance(t, DTensor) else t, tree)

@@ -1409,3 +1409,58 @@ def test_server_hosts_a_model_on_the_card(cuda, tmp_path):
         value, _ = store.load(sig)
         assert all(t.is_cuda for t in tree_leaves(value)
                    if isinstance(t, torch.Tensor)), sig
+
+
+@pytest.mark.cuda
+def test_local_mesh_on_the_card_is_one_nccl_device_reused(cuda):
+    """``make_local_mesh("cuda")`` twice: a (1, 1) mesh named ("data",
+    "model") on the card, one nccl group of world size 1, the second call
+    reusing it; the group is destroyed at the block's end."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    with tmesh.local_mesh("cuda") as first:
+        group = dist.group.WORLD
+        second = tmesh.make_local_mesh("cuda")
+        assert dist.group.WORLD is group and first == second
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert tuple(first.shape) == (1, 1)
+        assert first.mesh_dim_names == ("data", "model")
+        assert first.device_type == "cuda"
+    assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_place_aliases_storage_on_the_card(cuda):
+    """The reduced internlm2's train state placed under TRAIN_2D on the
+    card's mesh: every DTensor's local tensor shares the storage of the
+    tensor it was made from, and a train step of the local tensors is
+    bitwise one of the tensors themselves."""
+    import torch.distributed as dist
+    from repro_torch import configs as tconfigs
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import mesh as tmesh, train as ttrain
+    from repro_torch.models import params as tparams
+    from repro_torch.train import steps as tsteps
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    cfg = tconfigs.reduced(tconfigs.get("internlm2-1.8b"))
+    state = tsteps.init_train_state(
+        cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=torch.Generator().manual_seed(1),
+                                     dtype=torch.int32).to(cuda)}
+    with tmesh.local_mesh("cuda") as mesh:
+        placed = tparams.place(state, ttrain.state_shardings(cfg, mesh))
+        back = tparams.local(placed)
+        for t, d, b in zip(tree_leaves(state), tree_leaves(placed),
+                           tree_leaves(back)):
+            ptr = t.untyped_storage().data_ptr()
+            assert d.to_local().untyped_storage().data_ptr() == ptr
+            assert b.untyped_storage().data_ptr() == ptr and b.is_cuda
+        got, gm = tsteps.train_step(cfg, back, batch)
+    want, wm = tsteps.train_step(cfg, state, batch)
+    assert float(gm["loss"]) == float(wm["loss"])
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert torch.equal(a, b)

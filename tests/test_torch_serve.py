@@ -170,6 +170,12 @@ MODEL_MODULES = ("repro_torch.models.lm", "repro_torch.models.moe",
                  "repro_torch.launch.serve")
 
 
+SHARDING_MODULES = ("repro_torch.sharding", "repro_torch.sharding.rules",
+                    "repro_torch.sharding.activation",
+                    "repro_torch.launch.mesh", "repro_torch.models.params",
+                    "repro_torch.launch.train")
+
+
 def test_port_imports_no_jax_ml_dtypes_or_reference():
     """Import every module of ``repro_torch`` (walked, so a new module
     cannot slip past; the Helix core's, the training slice's and the
@@ -179,7 +185,9 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
     layer, the sweep and search drivers and their bench are named too, and
     the model modules (the MoE block, M-RoPE, the hybrid stack and the
     encoder-decoder among them) and the serving entry point, and the
-    engine benches, the by-name bench CLI and the eight examples."""
+    engine benches, the by-name bench CLI and the eight examples, and the
+    sharding substrate (rules, activation constraints, the mesh functions,
+    the spec resolver and the launchers that place state on the mesh)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -200,6 +208,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(benches) <= set(mods), sorted(set(benches) - set(mods))\n"
         f"models = {list(MODEL_MODULES)!r}\n"
         "assert set(models) <= set(mods), sorted(set(models) - set(mods))\n"
+        f"sharding = {list(SHARDING_MODULES)!r}\n"
+        "assert set(sharding) <= set(mods), sorted(set(sharding) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "

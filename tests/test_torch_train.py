@@ -30,6 +30,7 @@ from repro_torch.data.pipeline import TokenBatcher
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.models import convert
 from repro_torch.train import steps as tsteps
+from test_torch_moe_train import _assert_updates_close
 
 GRAD_RTOL = 3e-2       # bf16 gradients, relative to each leaf's max |g|
 LOSS_RTOL = 1e-4       # the fp32 loss of bf16 logits
@@ -173,46 +174,73 @@ def _ulp(max_abs: float, dtype) -> float:
 
 
 def test_three_train_steps_match_reference():
-    """Loss, grad norm, lr and step per step; then m, v, step and params
-    per leaf. Params: after a step AdamW moves an element by about
-    lr·sign(g) where |g| is small, so a rounding difference that flips a
-    tiny gradient's sign moves it by up to 2·lr: params are held at
-    atol = 2·peak_lr·steps plus two ulps of the leaf's max in its dtype
-    (a bound on that, not a count of elements that happen to agree).
-    The moments are fp32 running sums of the bf16 gradients: GRAD_RTOL."""
+    """Three steps from the same state, held as the MoE family's train
+    twins are (``tests/test_torch_moe_train.py``). Each step: loss, grad
+    norm, lr and step, and the step's update of every leaf element by
+    element in units of its lr (``_assert_updates_close``: on the elements
+    whose gradient no bf16 rounding can flip, within UPDATE_TOL; at the
+    first step every element within 2·lr). After the first step the
+    moments: m at GRAD_RTOL, v (~g², whose relative error is twice g's) at
+    2·GRAD_RTOL. After the third the params, at atol = 2·peak_lr·steps
+    plus two ulps of the leaf's max in its dtype (a rounding difference
+    that flips a tiny gradient's sign moves an element by up to 2·lr a
+    step).
+
+    The moments are not held after the third step: there the reference
+    against itself (``tests/torch_train_tolerance.py``: attention and
+    cross-entropy computed another way, so bf16 rounds elsewhere) reads
+    up to 3.33e-2 in v over 600 inits, 4 of them at or above GRAD_RTOL,
+    and the port 3.36e-2, 5 of them. The init follows the hash seed, so v
+    held there at GRAD_RTOL failed about one process in 120. After the
+    first step the port's v reads at most 2.99e-2 over those inits."""
     peak_lr, n = 1e-3, 3
     jcfg, tcfg = tiny(jconfigs), tiny(tconfigs)
     jstate, host = _reference_state()
     tstate = convert.train_state_from_numpy(host)
     step = jax.jit(lambda s, b: jsteps.train_step(
         jcfg, s, b, peak_lr=peak_lr, warmup_steps=2, total_steps=4))
+    names = _leaf_names(jstate.params)
+    resolved = []
     for i in range(n):
         tok = _tokens(10 + i)
-        jstate, jmet = step(jstate, {"tokens": jnp.asarray(tok)})
-        tstate, tmet = tsteps.train_step(
+        j_new, jmet = step(jstate, {"tokens": jnp.asarray(tok)})
+        t_new, tmet = tsteps.train_step(
             tcfg, tstate, {"tokens": torch.from_numpy(tok)},
             peak_lr=peak_lr, warmup_steps=2, total_steps=4)
         assert set(tmet) == set(jmet) == {"loss", "aux_loss", "grad_norm",
-                                          "lr", "step"}
-        assert rel_err(jmet["loss"], tmet["loss"]) < LOSS_RTOL, i
-        assert rel_err(jmet["grad_norm"], tmet["grad_norm"]) < GNORM_RTOL, i
-        assert rel_err(jmet["lr"], tmet["lr"]) < 1e-6, i
-        assert float(tmet["step"]) == float(jmet["step"]) == i + 1
-    assert tstate.opt.step.dtype == torch.int32
-    assert int(tstate.opt.step) == int(jstate.opt.step) == n
-    names = _leaf_names(jstate.params)
-    for tree in ("m", "v"):
-        for name, a, b in zip(names,
-                              jax.tree_util.tree_leaves(getattr(jstate.opt, tree)),
-                              tree_leaves(getattr(tstate.opt, tree))):
-            assert b.dtype == torch.float32
-            assert rel_err(a, b) < GRAD_RTOL, (tree, name, rel_err(a, b))
+                                          "lr", "step"}, (i + 1, set(tmet))
+        for key, tol in (("loss", LOSS_RTOL), ("grad_norm", GNORM_RTOL),
+                         ("lr", 1e-6)):
+            err = rel_err(jmet[key], tmet[key])
+            assert err < tol, (f"step {i + 1}", key, float(jmet[key]),
+                               float(tmet[key]), err, tol)
+        assert float(tmet["step"]) == float(jmet["step"]) == i + 1, \
+            (f"step {i + 1}", float(tmet["step"]), float(jmet["step"]))
+        try:
+            _assert_updates_close(jstate, j_new, tstate, t_new,
+                                  float(jmet["lr"]), GRAD_RTOL, resolved)
+        except AssertionError as e:
+            raise AssertionError(f"step {i + 1} update (leaf, lr units): "
+                                 f"{e}") from e
+        if i == 0:
+            for tree, tol in (("m", GRAD_RTOL), ("v", 2 * GRAD_RTOL)):
+                for name, a, b in zip(
+                        names,
+                        jax.tree_util.tree_leaves(getattr(j_new.opt, tree)),
+                        tree_leaves(getattr(t_new.opt, tree))):
+                    assert b.dtype == torch.float32, (tree, name, b.dtype)
+                    err = rel_err(a, b)
+                    assert err < tol, ("step 1", tree, name, err, tol)
+        jstate, tstate = j_new, t_new
+    assert tstate.opt.step.dtype == torch.int32, tstate.opt.step.dtype
+    assert int(tstate.opt.step) == int(jstate.opt.step) == n, \
+        (int(tstate.opt.step), int(jstate.opt.step))
     for name, a, b in zip(names, jax.tree_util.tree_leaves(jstate.params),
                           tree_leaves(tstate.params)):
         a = np.asarray(a, np.float32)
         bound = 2 * peak_lr * n + 2 * _ulp(float(np.abs(a).max()), b.dtype)
         err = float(np.abs(a - b.float().numpy()).max())
-        assert err <= bound, (name, err, bound)
+        assert err <= bound, (f"step {n} params", name, err, bound)
 
 
 # ------------------------------------------------------------- the port alone
