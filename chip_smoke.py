@@ -124,6 +124,13 @@ Phases (any failure exits non-zero; none is caught and passed over):
      RMSNorm 4L + 1 / 2L + 1 launches, loss, grad norm and every updated
      param bitwise the same step with no mesh, peak memory within 0.5 GB
      of phase 6's; the process group destroyed at the end;
+  6g. the dry run (``repro_torch.launch.dryrun``): its CLI in a
+     subprocess traces internlm2-1.8b's train_4k cell on a fake 256-rank
+     16 x 16 mesh (per-device FLOPs, all-gathers and reductions); then
+     phase 6f's cell traced on a world-1 mesh by the same counting
+     function, and one real step on the card under it: equal FLOP counts,
+     the traced peak within 10% of the card's, the roofline's ideal time
+     beside the measured step, RMSNorm 4L + 1 / 2L + 1 launches;
   6b. the same for mamba2-130m at full width and depth (24 layers,
      d_model 768, chunk 128): the SSD chunk kernel (twice a layer a step
      under remat, all tensor-core) and its backward kernel (once), the
@@ -358,6 +365,30 @@ TRAIN_PEAK_GB = {}   # phase 6's peak memory by config name, for phase 6e
 TRAIN_FIRST_STEP = {}  # phase 6's first step's metrics by config name (6f)
 # phase 6f: the one-card mesh's train step may peak this much above phase 6
 MESH_PEAK_SLACK_GB = 0.5
+# phase 6g: the dry run's peak estimate against the card's measured peak,
+# and the CLI's subprocess's time limit
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_CLI_TIMEOUT_S = 240
+# phase 6g (b): the train cell at (batch, seq) traced on a world-1 fake
+# group's (1, 1) mesh; prints its FLOPs, peak of live bytes, argument
+# bytes and trace seconds as one JSON line
+DRYRUN_WORLD1 = """
+import dataclasses, json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch import configs
+from repro_torch.launch import dryrun, shapes
+arch, batch, seq = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+cfg = configs.get(arch)
+shapes.SHAPES["train_4k"] = dataclasses.replace(shapes.SHAPES["train_4k"],
+                                                batch=batch, seq=seq)
+with dryrun.fake_group(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    fn, args, in_sh, _, _ = shapes.build_step(cfg, "train_4k", mesh)
+    c = dryrun.trace_step(fn, args, in_sh, mesh)
+    print(json.dumps({"flops": c.flops, "temp_bytes": c.temp_bytes,
+                      "arg_bytes": dryrun._arg_bytes_per_device(args, in_sh, 1),
+                      "trace_s": c.trace_s}))
+"""
 
 
 def card_peaks(name: str) -> tuple[float, float, float]:
@@ -2562,6 +2593,126 @@ def train_mesh_path(dev):
     return launches
 
 
+def train_dryrun_path(dev):
+    """Phase 6g: the dry run (``launch/dryrun.py``) on the card's machine.
+    (a) Its CLI in a subprocess of its own (a ``fake`` group of 256 ranks,
+    a 16 x 16 ``cpu`` mesh, fake tensors: the card is not touched):
+    internlm2-1.8b's train_4k cell must trace, with a per-device FLOP
+    count and all-gathers and reduce-scatters or all-reduces. (b) Phase
+    6f's one-card cell (batch 4 x 512, TRAIN_2D) traced by the same
+    counting function on a world-1 fake group's (1, 1) mesh, in a
+    subprocess too (``DRYRUN_WORLD1``: the caches a trace fills stay out
+    of this process), then one real step on the card under that
+    function, the counts set to 0 just before
+    it and read just after (RMSNorm 4L + 1 forwards, 2L + 1 backwards):
+    the two FLOP counts equal, the trace's peak (arguments + its peak of
+    live bytes) within DRYRUN_PEAK_TOL of ``max_memory_allocated``, and the
+    roofline's ideal time printed beside the measured step. Returns the
+    launch counts."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import synth
+    from repro_torch.launch import dryrun, roofline, shapes
+    from repro_torch.train import steps
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group runs before phase 6g")
+    out_dir = os.path.join(ROOT, "build", "dryrun_6g")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "train_4k", "--mesh", "single", "--out", out_dir],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_CLI_TIMEOUT_S)
+    cli_s = time.perf_counter() - t0
+    require(proc.returncode == 0, ("the dry run's CLI", proc.returncode,
+                                   proc.stderr[-3000:]))
+    with open(os.path.join(out_dir, f"{ARCH}_train_4k_pod16x16.json")) as f:
+        rec = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counts = rec.get("collectives", {}).get("counts", {})
+    print(f"dry run CLI: {ARCH} x train_4k x pod16x16 in {cli_s:.1f} s "
+          f"(trace {rec.get('trace_s', float('nan')):.1f} s on the host): ok "
+          f"{rec['ok']}, {rec.get('cost_analysis', {}).get('flops', 0):.4e} "
+          f"FLOP a device, args {rec.get('arg_bytes_per_device', 0) / 1e9:.3f}"
+          f" GB, temp {rec.get('memory_analysis', {}).get('temp_size_in_bytes', 0) / 1e9:.3f}"
+          f" GB a device, collectives {counts}; error "
+          f"{rec.get('error')!r}")
+    require(rec["ok"] and rec["cost_analysis"]["flops"] > 0
+            and counts.get("all-gather", 0) > 0
+            and counts.get("reduce-scatter", 0) + counts.get("all-reduce", 0)
+            > 0, ("the dry run's record", rec.get("error"), counts))
+
+    cfg = configs.get(ARCH)
+    L = cfg.num_layers
+    # the trace in a process of its own, as the CLI's: the fake tensors'
+    # and DTensor's caches it fills stay out of this process
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", DRYRUN_WORLD1, ARCH, str(BATCH), str(PROMPT)],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_CLI_TIMEOUT_S)
+    require(proc.returncode == 0, ("the world-1 trace", proc.returncode,
+                                   proc.stderr[-3000:]))
+    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    arg_bytes = traced["arg_bytes"]
+    est_gb = (arg_bytes + traced["temp_bytes"]) / 1e9
+    print(f"dry run, phase 6f's cell ({BATCH} x {PROMPT}) on a world-1 mesh: "
+          f"{time.perf_counter() - t0:.1f} s in a subprocess (trace "
+          f"{traced['trace_s']:.1f} s), {traced['flops']:.6e} FLOP, args "
+          f"{arg_bytes / 1e9:.3f} GB + peak of live bytes "
+          f"{traced['temp_bytes'] / 1e9:.3f} GB = {est_gb:.3f} GB")
+
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    tok = torch.from_numpy(synth.lm_tokens(
+        SEED, BATCH * PROMPT, cfg.vocab_size).astype(np.int32)).reshape(
+        BATCH, PROMPT).to(dev)
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset(counters)
+    t0 = time.perf_counter()
+    (new, met), real = dryrun.count_step(
+        lambda st, b: steps.train_step(cfg, st, b), state, {"tokens": tok})
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    launches = _read(counters)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    loss = float(met["loss"])
+    del state, new, met
+    torch.cuda.empty_cache()
+    rec1 = {"ok": True, "arch": ARCH, "shape": "train_4k", "mesh": "1x1",
+            "n_devices": 1, "cost_analysis": {"flops": traced["flops"]},
+            "arg_bytes_per_device": arg_bytes,
+            "model_flops_global": dryrun.model_flops(
+                cfg, "train_4k", sh=dataclasses.replace(
+                    shapes.SHAPES["train_4k"], batch=BATCH, seq=PROMPT))}
+    row = roofline.analyze_record(rec1)
+    expect = {k: 0 for k in counters}
+    expect.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
+    err = abs(est_gb - peak_gb) / peak_gb
+    print(f"dry run vs the card: one step {step_s * 1e3:.1f} ms (host clock, "
+          f"under the counting mode, ending in a sync), loss {loss!r}; FLOP "
+          f"traced {traced['flops']} counted on the card {real.flops} (equal:"
+          f" {traced['flops'] == real.flops}); peak estimate {est_gb:.3f} GB, "
+          f"max_memory_allocated {peak_gb:.3f} GB ({err * 100:.2f}% apart; "
+          f"the counting mode's own peak on the card: args {arg_bytes / 1e9:.3f}"
+          f" + {real.temp_bytes / 1e9:.3f} GB); roofline ideal "
+          f"{row['ideal_s'] * 1e3:.2f} ms (6ND = {rec1['model_flops_global']:.4e}"
+          f" FLOP at {roofline.PEAK_FLOPS / 1e12:.0f} TFLOP/s); launches "
+          f"{launches}")
+    require(traced["flops"] == real.flops and real.flops > 0,
+            ("dry-run FLOPs vs the card's", traced["flops"], real.flops))
+    require(err <= DRYRUN_PEAK_TOL, ("dry-run peak", est_gb, peak_gb))
+    require(launches == expect, ("dry-run step launches", launches, expect))
+    print(f"dry run: phase 6g {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def train_ssm_path(dev):
     """Phase 6b: mamba2-130m at full width and depth (24 layers, d_model
     768, chunk 128) through the trainer's step loop. A step under remat
@@ -3863,6 +4014,7 @@ def main() -> int:
                "helix-session": session_path(dev),
                "train-internlm2": train_path(dev),
                "train-internlm2-mesh": train_mesh_path(dev),
+               "train-internlm2-dryrun": train_dryrun_path(dev),
                "train-mamba2": train_ssm_path(dev),
                "train-granite-moe": train_moe_path(dev),
                "train-qwen2-moe-reduced": train_moe_reduced(dev),

@@ -75,10 +75,13 @@ def local_mesh(device: str | torch.device | None = None):
             dist.destroy_process_group()
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """16×16 single pod (256 devices) or 2×16×16 two-pod (512 devices) on
-    the card; raises when the process group (or, with none, this process's
-    one card) has fewer devices than that."""
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str = "cuda"):
+    """16×16 single pod (256 devices) or 2×16×16 two-pod (512 devices) of
+    ``device``'s type: ``cuda`` by default, ``cpu`` for the dry run's
+    ``fake`` group (``launch/dryrun.py``), which moves no data; raises
+    when the process group (or, with none, this process's one card) has
+    fewer devices than that."""
     from torch.distributed.device_mesh import init_device_mesh
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
@@ -88,4 +91,4 @@ def make_production_mesh(*, multi_pod: bool = False):
         raise RuntimeError(
             f"need {n} devices, have {have}: the production mesh is one "
             f"process a device across hosts (ROADMAP queue 1 item 9d)")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device, shape, mesh_dim_names=axes)

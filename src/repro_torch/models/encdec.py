@@ -35,7 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from ..sharding.activation import batch_axes, constrain
+from ..sharding.activation import batch_axes, cache_leaf, constrain, on_mesh
 from . import layers
 from .config import ArchConfig
 from .lm import _maybe_remat, _stack, _unstack, embed_lookup
@@ -90,11 +90,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, enc_len: int,
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (cfg.encdec.dec_layers, batch, max_len, kvh, hd)
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.bfloat16, device=device)
+    def zeros(name, *shape):
+        # on a mesh of several devices, laid out as the reference's
+        # prefill lays its cache out; a plain tensor otherwise
+        return cache_leaf(name, shape, 0, torch.bfloat16, device, batch)
 
-    return {"k": zeros(*shape), "v": zeros(*shape),
-            "enc_out": zeros(batch, enc_len, cfg.d_model), "pos": 0}
+    return {"k": zeros("k", *shape), "v": zeros("v", *shape),
+            "enc_out": zeros("enc_out", batch, enc_len, cfg.d_model),
+            "pos": 0}
 
 
 def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
@@ -105,8 +108,9 @@ def encode(cfg: ArchConfig, params: dict, frames: torch.Tensor
     b, s, _ = frames.shape
     h = frames.to(torch.bfloat16) @ params["frame_proj"]
     h = constrain(h, batch_axes(), None, None)
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=frames.device).expand(b, s)
+    positions = on_mesh(torch.arange(s, dtype=torch.int32,
+                                     device=frames.device).expand(b, s),
+                        batch_axes(), None)
 
     def body(h, p):
         x = layers.rmsnorm(h, p["ln1"], cfg.norm_eps)
@@ -134,8 +138,9 @@ def decode(cfg: ArchConfig, params: dict, tokens: torch.Tensor,
     h = embed_lookup(cfg, params["embed"], tokens)
     has_cache = cache is not None
     base = cache["pos"] if has_cache else 0
-    positions = torch.arange(base, base + s, dtype=torch.int32,
-                             device=tokens.device).expand(b, s)
+    positions = on_mesh(torch.arange(base, base + s, dtype=torch.int32,
+                                     device=tokens.device).expand(b, s),
+                        batch_axes(), None)
     h = constrain(h, batch_axes(), None, None)
 
     def body(h, p, kv_cache):

@@ -33,6 +33,9 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ops import GLOBAL_WINDOW
 from ..kernels.rmsnorm import ops as rmsnorm_ops
+from ..sharding.activation import (batch_axes, constrain, distributed, full,
+                                   model_axis, shards, splittable,
+                                   write_slice)
 from .params import P
 
 __all__ = ["GLOBAL_WINDOW", "project", "rmsnorm_defs", "rmsnorm",
@@ -49,8 +52,28 @@ def project(x: torch.Tensor, w: torch.Tensor, n_in: int = 1) -> torch.Tensor:
     einsum it would run as a ``bmm`` with a batch of 1, the op of the
     batched products."""
     k = math.prod(w.shape[:n_in])
-    out = torch.mm(x.reshape(-1, k), w.reshape(k, -1))
+    if distributed(w):
+        # on a mesh of several devices, shards that the views below (or
+        # their backwards) would split unevenly are gathered (8 KV heads on
+        # a 16-way model axis)
+        rows, cols = x.shape[0], w.shape[n_in]
+        x2 = splittable(x.reshape(-1, k), rows, w.shape[0])
+        w2 = splittable(w.reshape(k, -1), w.shape[0], cols)
+        out = splittable(torch.mm(x2, w2), rows, cols)
+    else:
+        out = torch.mm(x.reshape(-1, k), w.reshape(k, -1))
     return out.reshape(*x.shape[:x.dim() - n_in], *w.shape[n_in:])
+
+
+def _to_residual(x: torch.Tensor) -> torch.Tensor:
+    """A block's output laid out as the residual stream it is added to
+    (batch over the batch axes, the rest whole): on a mesh of several
+    devices, the partial sums of a product contracted over a sharded dim
+    are reduced here, where DTensor would otherwise carry them into the
+    next block; ``x`` itself with no mesh and on a mesh of one device."""
+    if not distributed(x):
+        return x
+    return constrain(x, batch_axes(), None, None)
 
 
 # --------------------------------------------------------------------------- norm
@@ -146,9 +169,13 @@ def _sdpa_chunked(qg, k, v, q_pos, k_pos, *, causal, window, valid_len,
     nc = (sk + pad) // chunk
     scale = d ** -0.5
     qf = qg.float()
-    m = torch.full((b, kvh, g, sq), -1e30, device=qg.device)
-    l = torch.zeros((b, kvh, g, sq), device=qg.device)
-    acc = torch.zeros((b, kvh, g, sq, d), device=qg.device)
+    # laid out as the queries on a mesh of several devices, else plain
+    ax = (batch_axes(), None, None, model_axis())
+    m = full((b, kvh, g, sq), -1e30, *ax, dtype=torch.float32,
+             device=qg.device)
+    l = full((b, kvh, g, sq), 0, *ax, dtype=torch.float32, device=qg.device)
+    acc = full((b, kvh, g, sq, d), 0, *ax, dtype=torch.float32,
+               device=qg.device)
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         k_i, v_i, kp_i = k[:, sl], v[:, sl], k_pos[:, sl]
@@ -198,23 +225,45 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q, k, v, q_offset=q_pos[:, 0].to(torch.int32).contiguous(),
             causal=causal,
             window=window if window is not None else GLOBAL_WINDOW)
+    if distributed(q):
+        # on a mesh of several devices: the heads whole (the products fold
+        # batch and heads into one dim, which DTensor cannot keep sharded
+        # over both); the queries' sequence over the model axis where
+        # S_q > 1, else the keys' and values' (a decode step's cache)
+        bd = batch_axes()
+        qs = model_axis() if sq > 1 else None
+        ks = None if sq > 1 else model_axis()
+        q = constrain(q, bd, qs, None, None)
+        q_pos = constrain(q_pos, bd, qs)
+        k = constrain(k, bd, ks, None, None)
+        v = constrain(v, bd, ks, None, None)
+        if g > 1 and qs is not None:
+            # each query head gets its own copy of its KV head: the
+            # products would fold (G, S_q) into one dim, sharded unevenly
+            k, v = k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)
+            kvh, g = h, 1
     qg = q.reshape(b, sq, kvh, g, d)
     if impl == "chunked" and sq > 1:
         out = _sdpa_chunked(qg, k, v, q_pos, k_pos, causal=causal,
                             window=window, valid_len=valid_len)
-        return out.reshape(b, sq, h, d)
-    rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
-    mask = torch.ones((b, 1, 1, sq, k.shape[1]), dtype=torch.bool,
-                      device=q.device)
-    if causal:
-        mask = mask & (rel >= 0)
-    if window is not None:
-        mask = mask & (rel < window)
-    if valid_len is not None:
-        mask = mask & (torch.arange(k.shape[1], device=q.device)
-                       < valid_len[:, None, None, None, None])
-    out = _sdpa_reference(qg, k, v, mask)
-    return out.reshape(b, sq, h, d)
+    else:
+        rel = q_pos[:, None, None, :, None] - k_pos[:, None, None, None, :]
+        mask = torch.ones((b, 1, 1, sq, k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (rel >= 0)
+        if window is not None:
+            mask = mask & (rel < window)
+        if valid_len is not None:
+            mask = mask & (torch.arange(k.shape[1], device=q.device)
+                           < valid_len[:, None, None, None, None])
+        out = _sdpa_reference(qg, k, v, mask)
+    out = out.reshape(b, sq, h, d)
+    if distributed(out):
+        # the heads back over the model axis for the output projection,
+        # whose rows a sequence shard would cut unevenly
+        return constrain(out, batch_axes(), None, model_axis(), None)
+    return out
 
 
 def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -250,8 +299,13 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     if kv_cache is not None:
         kc, vc = kv_cache
-        kc[:, cache_pos:cache_pos + s] = k.to(kc.dtype)
-        vc[:, cache_pos:cache_pos + s] = v.to(vc.dtype)
+        if shards(kc, 1) > 1:
+            # a cache whose sequence a mesh of several devices shards
+            write_slice(kc, k.to(kc.dtype), 1, cache_pos)
+            write_slice(vc, v.to(vc.dtype), 1, cache_pos)
+        else:
+            kc[:, cache_pos:cache_pos + s] = k.to(kc.dtype)
+            vc[:, cache_pos:cache_pos + s] = v.to(vc.dtype)
         k_full, v_full = kc, vc
         k_pos = torch.arange(kc.shape[1], dtype=torch.int32,
                              device=x.device).expand(b, -1)
@@ -267,7 +321,7 @@ def attn_block(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     out = gqa_attention(q, k_full, v_full, positions, k_pos,
                         causal=causal, window=window, valid_len=valid,
                         impl=cfg.attn_impl)
-    return project(out, p["wo"], 2), new_cache
+    return _to_residual(project(out, p["wo"], 2)), new_cache
 
 
 def ring_update(kc: torch.Tensor, vc: torch.Tensor, kpc: torch.Tensor,
@@ -294,7 +348,7 @@ def ring_update(kc: torch.Tensor, vc: torch.Tensor, kpc: torch.Tensor,
         slot = cache_pos % w          # cache_pos >= 0: the same as rem
         kc[:, slot:slot + 1] = k.to(kc.dtype)
         vc[:, slot:slot + 1] = v.to(vc.dtype)
-        kpc[:, slot] = cache_pos
+        kpc.narrow(1, slot, 1).fill_(cache_pos)
         return kc, vc, kpc
     last = cache_pos + s - 1
     j = torch.arange(w, dtype=torch.int32, device=kpc.device)
@@ -340,7 +394,7 @@ def attn_block_ring(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = gqa_attention(q, k, v, positions, positions, causal=True,
                             window=window, impl=cfg.attn_impl)
         ring_update(kc, vc, kpc, k, v, cache_pos)
-    return project(out, p["wo"], 2), (kc, vc, kpc)
+    return _to_residual(project(out, p["wo"], 2)), (kc, vc, kpc)
 
 
 def cross_attn_block(cfg, p: dict, x: torch.Tensor, enc: torch.Tensor
@@ -356,11 +410,14 @@ def cross_attn_block(cfg, p: dict, x: torch.Tensor, enc: torch.Tensor
     q = project(x, p["wq"])
     k = project(enc, p["wk"])
     v = project(enc, p["wv"])
-    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
-    k_pos = torch.zeros((b, enc.shape[1]), dtype=torch.int32, device=x.device)
+    # over the batch axes on a mesh of several devices, plain otherwise
+    bd = batch_axes()
+    q_pos = full((b, s), 0, bd, None, dtype=torch.int32, device=x.device)
+    k_pos = full((b, enc.shape[1]), 0, bd, None, dtype=torch.int32,
+                 device=x.device)
     out = gqa_attention(q, k, v, q_pos, k_pos, causal=False, window=None,
                         impl="reference")
-    return project(out, p["wo"], 2)
+    return _to_residual(project(out, p["wo"], 2))
 
 
 # --------------------------------------------------------------------------- mlp
@@ -374,4 +431,4 @@ def mlp_defs(d: int, d_ff: int) -> dict:
 
 def mlp_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     h = F.silu(project(x, p["w_gate"])) * project(x, p["w_up"])
-    return project(h, p["w_down"])
+    return _to_residual(project(h, p["w_down"]))

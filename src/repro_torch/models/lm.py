@@ -62,7 +62,8 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from ..sharding.activation import batch_axes, constrain
+from ..sharding.activation import (batch_axes, cache_leaf, constrain,
+                                   distributed, model_axis, on_mesh)
 from . import layers, moe as moe_lib, ssd as ssd_lib
 from .config import ArchConfig
 from .params import P, init_params, tree_map
@@ -185,55 +186,50 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     write offset) is a host int."""
     _require_decoder_only(cfg)
     kvh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def leaf(name, shape, dtype=torch.bfloat16, fill=0):
+        # on a mesh of several devices, laid out as the reference's
+        # prefill lays its cache out; a plain tensor otherwise
+        return cache_leaf(name, shape, fill, dtype, device, batch)
+
     if cfg.family == "hybrid":
         ng, n_ssm = _n_groups(cfg), cfg.attn_every - 1
-        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
+        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, "meta")
         shape = (ng, batch, max_len, kvh, hd)
         return {
-            "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "conv": conv.new_zeros((ng, n_ssm) + conv.shape),
-            "h": h.new_zeros((ng, n_ssm) + h.shape),
+            "k": leaf("k", shape),
+            "v": leaf("v", shape),
+            "conv": leaf("conv", (ng, n_ssm) + conv.shape, conv.dtype),
+            "h": leaf("h", (ng, n_ssm) + h.shape, h.dtype),
             "pos": 0,
         }
     if cfg.family == "ssm":
-        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, device)
+        conv, h = ssd_lib.init_ssm_state(cfg, cfg.ssm, batch, "meta")
         return {
-            "conv": conv.new_zeros((cfg.num_layers,) + conv.shape),
-            "h": h.new_zeros((cfg.num_layers,) + h.shape),
+            "conv": leaf("conv", (cfg.num_layers,) + conv.shape, conv.dtype),
+            "h": leaf("h", (cfg.num_layers,) + h.shape, h.dtype),
             "pos": 0,
         }
     if _windowed(cfg):
         ng, g, tail = _window_groups(cfg)
         w = min(cfg.window, max_len)
         neg = -(1 << 30)
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.bfloat16, device=device)
-
-        def empty_positions(*shape):
-            return torch.full(shape, neg, dtype=torch.int32, device=device)
-
         return {
             # local layers: ring buffers of `w` slots + absolute positions
-            "kl": zeros(ng, g - 1, batch, w, kvh, hd),
-            "vl": zeros(ng, g - 1, batch, w, kvh, hd),
-            "kpl": empty_positions(ng, g - 1, batch, w),
+            "kl": leaf("kl", (ng, g - 1, batch, w, kvh, hd)),
+            "vl": leaf("vl", (ng, g - 1, batch, w, kvh, hd)),
+            "kpl": leaf("kpl", (ng, g - 1, batch, w), torch.int32, neg),
             # global layers: full-length caches
-            "kg": zeros(ng, 1, batch, max_len, kvh, hd),
-            "vg": zeros(ng, 1, batch, max_len, kvh, hd),
+            "kg": leaf("kg", (ng, 1, batch, max_len, kvh, hd)),
+            "vg": leaf("vg", (ng, 1, batch, max_len, kvh, hd)),
             # tail local layers (num_layers % global_every)
-            "kt": zeros(tail, batch, w, kvh, hd),
-            "vt": zeros(tail, batch, w, kvh, hd),
-            "kpt": empty_positions(tail, batch, w),
+            "kt": leaf("kt", (tail, batch, w, kvh, hd)),
+            "vt": leaf("vt", (tail, batch, w, kvh, hd)),
+            "kpt": leaf("kpt", (tail, batch, w), torch.int32, neg),
             "pos": 0,
         }
     shape = (cfg.num_layers, batch, max_len, kvh, hd)
-    return {
-        "k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-        "pos": 0,
-    }
+    return {"k": leaf("k", shape), "v": leaf("v", shape), "pos": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +239,15 @@ def embed_lookup(cfg: ArchConfig, table: torch.Tensor, tokens: torch.Tensor
                  ) -> torch.Tensor:
     """Embedding lookup. The reference's ``embed_impl="onehot"`` is a bf16
     one-hot matmul, which reproduces the table row exactly; an index lookup
-    gives the same bits for either setting."""
+    gives the same bits for either setting. A DTensor table on a mesh of
+    several devices takes the one-hot product, each device over its shard
+    of the vocab: DTensor's index and embedding backwards fail on a table
+    sharded over the vocab."""
+    if distributed(table):
+        vocab = on_mesh(torch.arange(table.shape[0], device=table.device),
+                        model_axis())
+        hit = (tokens[..., None] == vocab).to(torch.bfloat16)
+        return torch.einsum("bsv,vd->bsd", hit, table.to(torch.bfloat16))
     return table.to(torch.bfloat16)[tokens.long()]
 
 
@@ -311,6 +315,7 @@ def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(base, base + s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
+    positions = on_mesh(positions, batch_axes(), None)
     h = constrain(h, batch_axes(), None, None)
 
     if cfg.family == "hybrid":

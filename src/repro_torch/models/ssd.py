@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ops as ssd_ops
+from ..sharding.activation import splittable
 from .config import SSMCfg
 from .layers import rmsnorm
 from .params import P
@@ -189,10 +190,12 @@ def ssm_block(cfg, scfg: SSMCfg, p: dict, x: torch.Tensor,
         conv_out = F.silu(conv_out)[:, 0]
         new_conv_state = cat[:, -(k - 1):, :]
         xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
-        xh = xs.reshape(bsz, nheads, scfg.head_dim)
+        # on a mesh of several devices, channel shards that the split into
+        # heads (or its backward) would cut unevenly are gathered
+        xh = splittable(xs, None, nheads).reshape(bsz, nheads, scfg.head_dim)
         y, h_new = ssd_decode_step(xh, dt[:, 0], a, B, C, h)
         y = y + xh.float() * p["d_skip"][:, None]
-        y = y.reshape(bsz, 1, d_in)
+        y = splittable(y.reshape(bsz, 1, d_in), None, None, nheads)
         new_state = (new_conv_state, h_new)
     else:
         conv_state = state[0] if state is not None else None
@@ -200,7 +203,10 @@ def ssm_block(cfg, scfg: SSMCfg, p: dict, x: torch.Tensor,
         conv_out, new_conv_state = _causal_conv(
             xbc, p["conv_w"], p["conv_b"], conv_state)
         xs, B, C = torch.split(conv_out, [d_in, ns, ns], dim=-1)
-        xh = xs.reshape(bsz, S, nheads, scfg.head_dim)
+        # on a mesh of several devices, channel shards that the split into
+        # heads (or its backward) would cut unevenly are gathered
+        xh = splittable(xs, None, None, nheads).reshape(
+            bsz, S, nheads, scfg.head_dim)
         if use_kernel:
             # the kernel takes contiguous tensors; the split leaves views
             y, h_new = ssd_ops.ssd(xh.contiguous(), dt, a, B.contiguous(),
@@ -208,7 +214,7 @@ def ssm_block(cfg, scfg: SSMCfg, p: dict, x: torch.Tensor,
         else:
             y, h_new = ssd_scan_reference(xh, dt, a, B, C, scfg.chunk, h0=h0)
         y = y + (xh.float() * p["d_skip"][None, None, :, None]).to(y.dtype)
-        y = y.reshape(bsz, S, d_in)
+        y = splittable(y.reshape(bsz, S, d_in), None, None, nheads)
         new_state = (new_conv_state, h_new)
 
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_w"])

@@ -11,9 +11,17 @@ active one for the calling thread, as the reference's ``with mesh:`` does.
 With no active mesh, or when every entry resolves to ``None`` (always so
 on a mesh of one device), ``constrain`` returns ``x`` itself: the model's
 arithmetic and launches are those of a run without a mesh. A DTensor is
-redistributed to the resolved placements. A plain tensor under an entry
-that binds an axis raises: the sharded train step, whose activations are
-DTensors, is ROADMAP queue 1 item 9c.
+redistributed to the resolved placements. The steps trace on DTensors on
+a mesh of several devices (``launch/dryrun.py`` traces them on fake
+tensors); where DTensor cannot carry a sharding through an op the model
+code calls, each a no-op with no mesh and on a mesh of one device:
+``splittable`` before a view that would split a dim's shards unevenly
+(and on its gradient), ``full`` and ``on_mesh`` for the tensors a step
+makes (accumulators, positions), ``cache_leaf`` for a serving cache laid
+out as ``cache_axes`` say, ``write_slice`` for a write into a cache whose
+sequence is sharded. A plain tensor under an entry that binds an axis
+raises: executing a sharded step across devices, and the MoE block's
+sharded forms, are ROADMAP queue 1 item 9c.
 
 Also here, as pure functions of axis names and sizes (no process group):
 ``axis_sizes`` of a mesh or a ``{name: size}`` mapping, and
@@ -23,6 +31,7 @@ spec.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Any, Mapping
 
@@ -31,18 +40,29 @@ import torch
 BATCH_AXES = ("pod", "data")   # logical batch → physical axes (filtered)
 SEQ_AXES = ("data",)           # sequence parallelism for long-context decode
 
-_local = threading.local()
+
+class _State(threading.local):
+    """Each thread's batch axes and active mesh. The defaults are class
+    attributes, so a thread that never set one reads it with no
+    ``AttributeError`` raised and caught (a ``getattr`` default costs
+    that on every call of a step)."""
+    batch_axes = BATCH_AXES
+    mesh = None
+    several = False      # the active mesh has several devices
+
+
+_local = _State()
 
 
 def batch_axes() -> tuple:
     """Physical axes the logical batch maps to (overridable per run —
     e.g. pure-FSDP spreads batch over (pod, data, model))."""
-    return getattr(_local, "batch_axes", BATCH_AXES)
+    return _local.batch_axes
 
 
 @contextlib.contextmanager
 def use_batch_axes(axes: tuple):
-    prev = getattr(_local, "batch_axes", BATCH_AXES)
+    prev = _local.batch_axes
     _local.batch_axes = tuple(axes)
     try:
         yield
@@ -50,21 +70,34 @@ def use_batch_axes(axes: tuple):
         _local.batch_axes = prev
 
 
+def model_axis():
+    """``model``, the axis a sharded step spreads heads, the queries'
+    sequence or the vocab over, or None where the batch takes it."""
+    return None if "model" in batch_axes() else "model"
+
+
 def active_mesh():
     """The mesh of the innermost ``use_mesh`` of this thread, or None."""
-    return getattr(_local, "mesh", None)
+    return _local.mesh
+
+
+def _several() -> bool:
+    """Whether the active mesh has several devices (False with none)."""
+    return _local.several
 
 
 @contextlib.contextmanager
 def use_mesh(mesh):
     """``mesh`` (a ``DeviceMesh``) is the active mesh of this thread inside
     the block; the one before it is restored at the end."""
-    prev = active_mesh()
+    prev, prev_several = active_mesh(), _several()
     _local.mesh = mesh
+    # read by ``distributed`` on every call of a step: a mesh's size once
+    _local.several = mesh is not None and mesh.size() > 1
     try:
         yield mesh
     finally:
-        _local.mesh = prev
+        _local.mesh, _local.several = prev, prev_several
 
 
 def axis_sizes(mesh: Any) -> dict[str, int]:
@@ -139,7 +172,8 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     """``x`` with the sharding ``axes`` resolve to on the active mesh:
     ``x`` itself with no mesh or when every entry resolves to None, a
     DTensor redistributed to the resolved placements; a plain tensor
-    under an entry that binds an axis raises (ROADMAP queue 1 item 9c)."""
+    under an entry that binds an axis raises: a sharded step runs on
+    DTensors (executing one across devices is ROADMAP queue 1 item 9c)."""
     mesh = active_mesh()
     if mesh is None:
         return x
@@ -150,7 +184,193 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     if not isinstance(x, DTensor):
         raise NotImplementedError(
             f"constrain{tuple(axes)} binds mesh axes {entries} but got a "
-            f"plain tensor: a sharded step runs on DTensors, which is "
+            f"plain tensor: a sharded step runs on DTensors (build_step's "
+            f"in-shardings place them); executing one across devices is "
             f"ROADMAP queue 1 item 9c")
     return x.redistribute(mesh, placements(entries, x.ndim,
                                            mesh.mesh_dim_names))
+
+
+def distributed(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a DTensor inside ``use_mesh`` of a mesh of several
+    devices (a sharded step); False for a plain tensor, on a mesh of one
+    device and with no active mesh (checked first, from a flag that
+    ``use_mesh`` sets: the cheap answer of every other run)."""
+    if not _several():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` (a gradient) with the placements of ``like`` (its parameter)
+    on a mesh of several devices, as XLA lays a gradient out as its
+    parameter: partial sums become a reduce-scatter into the parameter's
+    shards, where DTensor might all-reduce the whole tensor later; ``x``
+    itself otherwise."""
+    if not distributed(x) or x.placements == like.placements:
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def shards(x: torch.Tensor, dim: int) -> int:
+    """Into how many shards the mesh dims of a DTensor ``x`` cut its dim
+    ``dim`` inside ``use_mesh`` (1 for a plain tensor or no active
+    mesh of several devices)."""
+    if not distributed(x):
+        return 1
+    dim %= x.ndim
+    return math.prod(x.device_mesh.size(i) for i, p in enumerate(x.placements)
+                     if p.is_shard(dim))
+
+
+def _gather_uneven(x: torch.Tensor, leads: tuple) -> torch.Tensor:
+    """``x`` (a DTensor) with the mesh dims that shard dim ``d`` gathered
+    where their total size does not divide ``leads[d]``."""
+    from torch.distributed.tensor import Replicate
+    gather = set()
+    for d, lead in enumerate(leads):
+        if lead is not None and lead % shards(x, d):
+            gather.update(i for i, p in enumerate(x.placements)
+                          if p.is_shard(d))
+    if not gather:
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if i in gather else p for i, p in enumerate(x.placements)))
+
+
+class _Splittable(torch.autograd.Function):
+    """``_gather_uneven`` on the value and on its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, leads):
+        ctx.leads = leads
+        return _gather_uneven(x, leads)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_uneven(g, ctx.leads), None
+
+
+def _mesh_placements(shape: tuple, axes: tuple):
+    """(mesh, placements) that ``axes`` resolve to on the active mesh of
+    several devices, or None with no mesh or a mesh of one device."""
+    if not _several():
+        return None
+    mesh = active_mesh()
+    entries = resolve_entries(tuple(shape), axes, axis_sizes(mesh))
+    return mesh, placements(entries, len(shape), mesh.mesh_dim_names)
+
+
+def full(shape: tuple, fill, *axes, dtype: torch.dtype,
+         device: torch.device | str) -> torch.Tensor:
+    """``torch.full(shape, fill)`` (``torch.zeros`` for a fill of 0) for a
+    tensor that a step makes: with no mesh or on a mesh of one device the
+    plain tensor, as before; on an active mesh of several devices a
+    DTensor laid out as ``constrain`` lays out ``axes``, each device
+    making only its own shard."""
+    on = _mesh_placements(shape, axes)
+    if on is None:
+        if fill == 0:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.full(shape, fill, dtype=dtype, device=device)
+    from torch.distributed import tensor as dtensor
+    return dtensor.full(shape, fill, dtype=dtype, device_mesh=on[0],
+                        placements=on[1])
+
+
+def on_mesh(t: torch.Tensor, *axes) -> torch.Tensor:
+    """A plain tensor that a step makes (a constant, the same on every
+    device: positions) laid out by ``axes`` on the active mesh of several
+    devices, as a DTensor cut from it on each device with no collective;
+    ``t`` itself with no mesh or on a mesh of one device."""
+    on = _mesh_placements(t.shape, axes)
+    if on is None:
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh, target = on
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False).redistribute(mesh, target)
+
+
+def cache_axes(name: str, ndim: int, long_ctx: bool) -> tuple:
+    """The serving cache's layout, per leaf name (the reference's
+    ``launch/shapes.py`` ``_cache_shardings``): K/V sequence over
+    ``model``, or over (``data``, ``model``) for a long context of batch
+    1; batch over (``pod``, ``data``); ring buffers and SSM states over
+    the batch only, the conv state's channels over ``model``."""
+    bd = ("pod", "data")
+    seq = ("data", "model") if long_ctx else ("model",)
+    if name in ("kg", "vg"):      # (G, 1, B, S, KV, hd) global layers
+        return (None, None, bd, seq, None, None)
+    if name in ("kl", "vl"):      # (G, g-1, B, W, KV, hd) ring buffers
+        return (None, None, bd, None, None, None)
+    if name == "kpl":
+        return (None, None, bd, None)
+    if name in ("kt", "vt"):      # (T, B, W, KV, hd)
+        return (None, bd, None, None, None)
+    if name == "kpt":
+        return (None, bd, None)
+    if name in ("k", "v"):
+        if ndim == 5:             # (L, B, S, KV, hd)
+            return (None, bd, seq, None, None)
+        return (bd, seq, None, None)
+    if name == "conv":            # (L[, n_ssm], B, K-1, C)
+        return (None,) * (ndim - 3) + (bd, None, ("model",))
+    if name == "h":               # (L[, n_ssm], B, H, P, N)
+        return (None,) * (ndim - 4) + (bd, None, None, None)
+    if name == "enc_out":         # (B, S_enc, D)
+        return (bd, None, None)
+    return (None,) * ndim
+
+
+def cache_leaf(name: str, shape: tuple, fill, dtype: torch.dtype,
+               device: torch.device | str, batch: int) -> torch.Tensor:
+    """A serving cache's leaf ``name`` of ``fill`` (``full``): on an active
+    mesh of several devices laid out as ``cache_axes`` say (a batch of 1
+    is a long context), as the reference's prefill lays its cache out."""
+    return full(shape, fill, *cache_axes(name, len(shape), batch == 1),
+                dtype=dtype, device=device)
+
+
+def write_slice(dst: torch.Tensor, src: torch.Tensor, dim: int,
+                start: int) -> None:
+    """``dst``'s positions [start, start + n) along ``dim`` (n =
+    ``src.shape[dim]``) set to ``src``, in place, for a DTensor ``dst``
+    sharded on ``dim`` (a cache whose sequence is sharded): each device
+    writes the part of the range that falls in its own shard, with no
+    collective, as XLA partitions a dynamic-update-slice. DTensor would
+    gather the whole cache to write a slice of a sharded dim."""
+    from torch.distributed.tensor import Replicate
+    mesh = dst.device_mesh
+    want = tuple(Replicate() if p.is_shard(dim) else p
+                 for p in dst.placements)
+    src = src.redistribute(mesh, want).to_local()
+    local = dst.to_local()
+    # this device's offset along ``dim``: the mesh dims cut it in order,
+    # each into even chunks (``resolve_entries`` binds only divisors)
+    off, n = 0, dst.shape[dim]
+    for i, p in enumerate(dst.placements):
+        if p.is_shard(dim):
+            n //= mesh.size(i)
+            off += mesh.get_coordinate()[i] * n
+    lo, hi = max(start, off), min(start + src.shape[dim], off + n)
+    if lo < hi:
+        local.narrow(dim, lo - off, hi - lo).copy_(
+            src.narrow(dim, lo - start, hi - lo))
+
+
+def splittable(x: torch.Tensor, *leads) -> torch.Tensor:
+    """``x`` ready for each dim ``d`` with a ``leads[d]`` (None for a dim
+    that is not split) to be split into (``leads[d]``, ...) by a view,
+    and its gradient ready for the same: a DTensor sharded on ``d`` over
+    mesh dims whose total size does not divide ``leads[d]`` has those
+    mesh dims gathered (``Replicate()``), in the forward and in the
+    backward, since DTensor cannot unflatten such a shard (XLA's
+    partitioner reshards there on its own). Put it after a view whose
+    backward splits and before a view that splits in the forward. ``x``
+    itself with no mesh, on a mesh of one device and for a plain
+    tensor."""
+    if not distributed(x):
+        return x
+    return _Splittable.apply(x, tuple(leads))

@@ -35,6 +35,9 @@ from ..core.tree import tree_flatten, tree_map, tree_unflatten
 from ..models import encdec, lm, registry
 from ..models.config import ArchConfig
 from ..optim import adamw, schedules
+from ..sharding.activation import (batch_axes, constrain, distributed,
+                                   laid_out_as, model_axis, on_mesh,
+                                   splittable)
 
 
 class TrainState(NamedTuple):
@@ -60,6 +63,29 @@ def _require_trainable(cfg: ArchConfig) -> None:
 # ---------------------------------------------------------------------------
 # loss
 # ---------------------------------------------------------------------------
+def _batch_layout(key: str, x: torch.Tensor) -> torch.Tensor:
+    """A batch leaf laid out over the batch axes (dim 1 of
+    ``mrope_positions``, dim 0 of the rest): ``x`` itself with no mesh
+    and on a mesh of one device."""
+    lead = (None,) if key == "mrope_positions" else ()
+    return constrain(x, *lead, batch_axes(),
+                     *[None] * (x.ndim - 1 - len(lead)))
+
+
+def _gold(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The logit of each target: a gather over the vocab. A DTensor on a
+    mesh of several devices takes it as the reference's one-hot product
+    does, a masked sum over the vocab, each device over its own shard of
+    the vocab: DTensor's gather there would make the whole (rows, vocab)
+    gradient on every device."""
+    if distributed(logits):
+        vocab = on_mesh(torch.arange(logits.shape[-1], device=logits.device),
+                        model_axis())
+        hit = targets[..., None] == vocab
+        return torch.where(hit, logits, 0).sum(-1)
+    return logits.gather(-1, targets[..., None].long())[..., 0]
+
+
 def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
           impl: str = "gather") -> torch.Tensor:
     if impl == "onehot":
@@ -70,12 +96,12 @@ def _xent(logits: torch.Tensor, targets: torch.Tensor, mask: torch.Tensor,
         m = logits.amax(-1, keepdim=True).detach()
         shifted = (logits - m).to(torch.float32)
         logz = torch.log(torch.exp(shifted).sum(-1)) + m[..., 0].to(torch.float32)
-        gold = logits.gather(-1, targets[..., None].long())[..., 0]
+        gold = _gold(logits, targets)
         nll = (logz - gold.to(torch.float32)) * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, -1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    gold = _gold(logits, targets)
     nll = (logz - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -89,8 +115,8 @@ def loss_fn(cfg: ArchConfig, params: Any, batch: dict
     tokens = batch["tokens"]
     mask = batch.get("loss_mask")
     if mask is None:
-        mask = torch.ones(tokens.shape, dtype=torch.float32,
-                          device=tokens.device)
+        mask = on_mesh(torch.ones(tokens.shape, dtype=torch.float32,
+                                  device=tokens.device), batch_axes(), None)
     if cfg.family == "audio":
         out = encdec.forward(cfg, params, batch["frames"], tokens)
     else:
@@ -117,7 +143,7 @@ def value_and_grad(cfg: ArchConfig, params: Any, batch: dict
     with torch.enable_grad():
         total, metrics = loss_fn(cfg, tree_unflatten(treedef, leaves), batch)
         grads = torch.autograd.grad(total, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else laid_out_as(g, p)
              for p, g in zip(leaves, grads)]
     return ({k: v.detach() for k, v in metrics.items()},
             tree_unflatten(treedef, grads))
@@ -139,20 +165,26 @@ def train_step(cfg: ArchConfig, state: TrainState, batch: dict, *,
         metrics, grads = value_and_grad(cfg, state.params, batch)
         grads = tree_map(lambda g: g.to(torch.float32), grads)
     else:
+        # on a mesh of several devices the batch is gathered for the split
+        # (its shards do not divide ``accum``) and each microbatch laid
+        # out over the batch axes again (a local cut); else as it is
         micro = {}
         for k, v in batch.items():
             if k == "mrope_positions":   # (3, B, S) -> (accum, 3, B/a, S)
-                micro[k] = v.reshape(3, accum, -1, v.shape[-1]).movedim(1, 0)
+                micro[k] = splittable(v, None, accum).reshape(
+                    3, accum, -1, v.shape[-1]).movedim(1, 0)
             else:
-                micro[k] = v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), state.params)
+                micro[k] = splittable(v, accum).reshape(
+                    (accum, v.shape[0] // accum) + v.shape[1:])
+        grads = tree_map(lambda p: torch.zeros_like(
+            p, dtype=torch.float32, memory_format=torch.contiguous_format),
+            state.params)
         metrics = {k: torch.zeros((), dtype=torch.float32,
                                   device=batch["tokens"].device)
                    for k in ("loss", "aux_loss")}
         for i in range(accum):
-            m_i, g_i = value_and_grad(cfg, state.params,
-                                      {k: v[i] for k, v in micro.items()})
+            m_i, g_i = value_and_grad(cfg, state.params, {
+                k: _batch_layout(k, v[i]) for k, v in micro.items()})
             grads = tree_map(lambda a, g: a + g.to(torch.float32), grads, g_i)
             metrics = {k: metrics[k] + m_i[k] / accum for k in metrics}
             del g_i

@@ -174,6 +174,10 @@ SHARDING_MODULES = ("repro_torch.sharding", "repro_torch.sharding.rules",
                     "repro_torch.sharding.activation",
                     "repro_torch.launch.mesh", "repro_torch.models.params",
                     "repro_torch.launch.train")
+# the dry run: shapes and steps per cell, the trace, the roofline, the report
+DRYRUN_MODULES = ("repro_torch.launch.shapes", "repro_torch.launch.dryrun",
+                  "repro_torch.launch.roofline",
+                  "repro_torch.launch.dryrun_report")
 
 
 def test_port_imports_no_jax_ml_dtypes_or_reference():
@@ -187,7 +191,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
     encoder-decoder among them) and the serving entry point, and the
     engine benches, the by-name bench CLI and the eight examples, and the
     sharding substrate (rules, activation constraints, the mesh functions,
-    the spec resolver and the launchers that place state on the mesh)."""
+    the spec resolver and the launchers that place state on the mesh), and
+    the dry run's modules (shapes, the trace, the roofline, the report)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -210,6 +215,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(models) <= set(mods), sorted(set(models) - set(mods))\n"
         f"sharding = {list(SHARDING_MODULES)!r}\n"
         "assert set(sharding) <= set(mods), sorted(set(sharding) - set(mods))\n"
+        f"dry = {list(DRYRUN_MODULES)!r}\n"
+        "assert set(dry) <= set(mods), sorted(set(dry) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
