@@ -131,6 +131,15 @@ Phases (any failure exits non-zero; none is caught and passed over):
      function, and one real step on the card under it: equal FLOP counts,
      the traced peak within 10% of the card's, the roofline's ideal time
      beside the measured step, RMSNorm 4L + 1 / 2L + 1 launches;
+  6h. (run last, after phase 10; 6c's peak printed beside its own) the
+     MoE block's sharded form: the dry run's CLI on granite-moe-1b-a400m
+     x train_4k x pod16x16 (``moe_impl="shard_map"``, routing on each
+     device's tokens) ok with all-reduces among its collectives; one
+     granite-moe step at full width and depth on the one-card mesh,
+     every MoE layer through ``moe_block_sharded``'s local body and its
+     all-reduces over the one-rank nccl group, bitwise the meshless step
+     through ``moe_block``, RMSNorm 4L + 1 / 2L + 1 launches and no
+     other;
   6b. the same for mamba2-130m at full width and depth (24 layers,
      d_model 768, chunk 128): the SSD chunk kernel (twice a layer a step
      under remat, all tensor-core) and its backward kernel (once), the
@@ -234,6 +243,7 @@ Imports nothing of JAX and nothing of the JAX package ``src/repro``.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import itertools
@@ -2451,34 +2461,124 @@ def train_path(dev):
     return launches
 
 
+def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
+              count=None, n_calls=None):
+    """One train step of ``cfg`` (BATCH x PROMPT, the trainer's loop)
+    twice from the same init and batch: with no mesh (its loss, grad norm
+    and updated params kept, the params on the host), then with the state
+    placed on the one-card ``mesh`` (``launch.train.state_shardings`` and
+    ``models.params.place``, each DTensor's local tensor the tensor it was
+    made from) under ``use_mesh``, the main path, with the counts set to 0
+    just before it and read just after: RMSNorm 4L + 1 forwards and 2L + 1
+    backwards, no other launch; its loss, grad norm and every updated
+    param bitwise the meshless step's, its peak memory within
+    MESH_PEAK_SLACK_GB of ``ref_peak_gb`` (``ref_name``'s, printed beside
+    with ``ref_metrics``). ``count`` (a context manager yielding a list)
+    counts calls on the main path; it must count ``n_calls``. Returns the
+    launch counts."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher
+    from repro_torch.launch import train
+    from repro_torch.models import params as params_lib
+    from repro_torch.sharding.activation import use_mesh
+    from repro_torch.train import steps
+
+    L = cfg.num_layers
+    tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
+                             cfg.vocab_size)
+    batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
+
+    def init():
+        return steps.init_train_state(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+    def one_step(state):
+        return train.train(cfg, state, batcher, 0, 1, lr=TRAIN_LR,
+                           total_steps=TRAIN_TOTAL, device=dev, log_every=1)
+
+    t0 = time.perf_counter()
+    plain = one_step(init())
+    want = plain.metrics[0]
+    want_params = tree_map(lambda t: t.cpu(), plain.state.params)
+    del plain
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{label}: the meshless step, {time.perf_counter() - t0:.1f} s "
+          f"with its init and the params' copy to the host: loss "
+          f"{want['loss']!r} grad norm {want['grad_norm']!r}; {ref_name}'s "
+          f"first step: loss {ref_metrics.get('loss')!r} grad norm "
+          f"{ref_metrics.get('grad_norm')!r}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = init()
+    placed = params_lib.place(state, train.state_shardings(cfg, mesh))
+    made, on_mesh = tree_leaves(state), tree_leaves(placed)
+    aliased = len(made) == len(on_mesh) and all(
+        isinstance(d, DTensor) and d.to_local().untyped_storage().data_ptr()
+        == t.untyped_storage().data_ptr() for t, d in zip(made, on_mesh))
+    nbytes = sum(t.numel() * t.element_size() for t in made)
+    del state, made
+    print(f"{label}: placed {len(on_mesh)} leaves, {nbytes / 1e9:.3f} GB "
+          f"(params, both moments, step) under train_2d; every "
+          f"local tensor the storage it was made from: {aliased}")
+    require(aliased, "a placed leaf does not alias its tensor")
+
+    counters = launch_counters()
+    torch.cuda.synchronize()
+    with count() if count else contextlib.nullcontext() as calls:
+        _reset(counters)
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            res = one_step(placed)             # the main path
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = _read(counters)
+    peak_gb = round(torch.cuda.max_memory_allocated(dev) / 1e9, 2)
+    del placed, on_mesh
+    got = res.metrics[0]
+    same = {"loss": got["loss"] == want["loss"],
+            "grad_norm": got["grad_norm"] == want["grad_norm"],
+            "params": same_bits(res.state.params, want_params)}
+    del res, want_params
+    torch.cuda.empty_cache()
+    expect = {k: 0 for k in counters}
+    expect.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
+    limit = ref_peak_gb + MESH_PEAK_SLACK_GB
+    print(f"{label}: the step on the mesh {step_s * 1e3:.1f} ms (host clock, "
+          f"the trainer's loop, ending in a sync); loss {got['loss']!r} grad "
+          f"norm {got['grad_norm']!r}; bitwise the meshless step: {same}; "
+          f"launches {launches}; calls counted "
+          f"{None if calls is None else len(calls)}; peak memory "
+          f"{peak_gb:.2f} GB ({ref_name}: {ref_peak_gb:.2f} GB)")
+    require(launches == expect, (label, "launches", launches, expect))
+    require(all(same.values()), (label, "the step on the mesh differs", same))
+    require(calls is None or len(calls) == n_calls,
+            (label, "calls on the main path", calls and len(calls), n_calls))
+    require(peak_gb <= limit, (label, "peak memory", peak_gb, limit))
+    return launches
+
+
 def train_mesh_path(dev):
     """Phase 6f: the sharding substrate on one card. ``make_local_mesh``
     twice (one nccl group of world size 1, reused; a (1, 1) mesh named
     ("data", "model") on cuda:0); internlm2-1.8b's specs at full width
     under TRAIN_2D and SERVE on it, every entry None and every placement
-    ``Replicate()``; then one train step of phase 6's config through the
-    trainer's loop twice from the same init and batch: with no mesh
-    (its loss, grad norm and updated params kept, the params on the host),
-    then with the state placed on the mesh (``launch.train.state_shardings``
-    and ``models.params.place``, each DTensor's local tensor the tensor it
-    was made from) under ``use_mesh``, the main path, with the counts set
-    to 0 just before it and read just after: RMSNorm 4L + 1 forwards and
-    2L + 1 backwards, no other launch; its loss, grad norm and every
-    updated param bitwise the meshless step's, its peak memory within
-    MESH_PEAK_SLACK_GB of phase 6's. The process group is destroyed at the
-    end. Returns the launch counts."""
+    ``Replicate()``; then one train step of phase 6's config on the mesh
+    against the meshless step (``mesh_step``: bitwise, RMSNorm 4L + 1 /
+    2L + 1, the peak within MESH_PEAK_SLACK_GB of phase 6's). The process
+    group is destroyed at the end. Returns the launch counts."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
 
     from repro_torch import configs
-    from repro_torch.core.tree import tree_leaves, tree_map
-    from repro_torch.data import synth
-    from repro_torch.data.pipeline import TokenBatcher
-    from repro_torch.launch import mesh as mesh_lib, train
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import params as params_lib, registry
     from repro_torch.sharding import rules
-    from repro_torch.sharding.activation import axis_sizes, use_mesh
-    from repro_torch.train import steps
+    from repro_torch.sharding.activation import axis_sizes
 
     t_phase = time.perf_counter()
     require(not dist.is_initialized(), "a process group runs before phase 6f")
@@ -2503,7 +2603,6 @@ def train_mesh_path(dev):
         mesh = first
 
         cfg = configs.get(ARCH)
-        L = cfg.num_layers
         defs = registry.param_defs(cfg)
         n_defs = len(tree_leaves(defs))
         for name in ("train_2d", "serve"):
@@ -2516,75 +2615,8 @@ def train_mesh_path(dev):
             print(f"train mesh: {cfg.name} under {name}: {len(sh)} leaves, "
                   f"every spec entry None, every placement Replicate()")
 
-        tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
-                                 cfg.vocab_size)
-        batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
-
-        def init():
-            return steps.init_train_state(
-                cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
-
-        def one_step(state):
-            return train.train(cfg, state, batcher, 0, 1, lr=TRAIN_LR,
-                               total_steps=TRAIN_TOTAL, device=dev,
-                               log_every=1)
-
-        t0 = time.perf_counter()
-        plain = one_step(init())
-        want = plain.metrics[0]
-        want_params = tree_map(lambda t: t.cpu(), plain.state.params)
-        del plain
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        phase6 = TRAIN_FIRST_STEP.get(cfg.name, {})
-        print(f"train mesh: the meshless step, {time.perf_counter() - t0:.1f} s "
-              f"with its init and the params' copy to the host: loss "
-              f"{want['loss']!r} grad norm {want['grad_norm']!r}; phase 6's "
-              f"first step: loss {phase6.get('loss')!r} grad norm "
-              f"{phase6.get('grad_norm')!r}")
-
-        torch.cuda.reset_peak_memory_stats(dev)
-        state = init()
-        placed = params_lib.place(state, train.state_shardings(cfg, mesh))
-        made, on_mesh = tree_leaves(state), tree_leaves(placed)
-        aliased = len(made) == len(on_mesh) and all(
-            isinstance(d, DTensor) and d.to_local().untyped_storage().data_ptr()
-            == t.untyped_storage().data_ptr() for t, d in zip(made, on_mesh))
-        nbytes = sum(t.numel() * t.element_size() for t in made)
-        del state, made
-        print(f"train mesh: placed {len(on_mesh)} leaves, {nbytes / 1e9:.3f} "
-              f"GB (params, both moments, step) under train_2d; every "
-              f"local tensor the storage it was made from: {aliased}")
-        require(aliased, "a placed leaf does not alias its tensor")
-
-        counters = launch_counters()
-        torch.cuda.synchronize()
-        _reset(counters)
-        t0 = time.perf_counter()
-        with use_mesh(mesh):
-            res = one_step(placed)             # the main path
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t0
-        launches = _read(counters)
-        peak_gb = round(torch.cuda.max_memory_allocated(dev) / 1e9, 2)
-        del placed, on_mesh
-        got = res.metrics[0]
-        same = {"loss": got["loss"] == want["loss"],
-                "grad_norm": got["grad_norm"] == want["grad_norm"],
-                "params": same_bits(res.state.params, want_params)}
-        del res, want_params
-        torch.cuda.empty_cache()
-        expect = {k: 0 for k in counters}
-        expect.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
-        limit = TRAIN_PEAK_GB[cfg.name] + MESH_PEAK_SLACK_GB
-        print(f"train mesh: the step on the mesh {step_s * 1e3:.1f} ms "
-              f"(host clock, the trainer's loop, ending in a sync); loss "
-              f"{got['loss']!r} grad norm {got['grad_norm']!r}; bitwise the "
-              f"meshless step: {same}; launches {launches}; peak memory "
-              f"{peak_gb:.2f} GB (phase 6: {TRAIN_PEAK_GB[cfg.name]:.2f} GB)")
-        require(launches == expect, ("mesh launches", launches, expect))
-        require(all(same.values()), ("the step on the mesh differs", same))
-        require(peak_gb <= limit, ("mesh peak memory", peak_gb, limit))
+        launches = mesh_step(dev, cfg, mesh, "train mesh", TRAIN_PEAK_GB[
+            cfg.name], "phase 6", TRAIN_FIRST_STEP.get(cfg.name, {}))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -2593,7 +2625,101 @@ def train_mesh_path(dev):
     return launches
 
 
-def train_dryrun_path(dev):
+_BACKGROUND = []     # the subprocesses ``started`` has started
+
+
+def started(args):
+    """``python args...`` from the repo's root in a subprocess of its own,
+    started now, its output in temporary files (a pipe nobody reads would
+    stall it); ``finished`` waits for it. The host traces of phases 6g and
+    6h run so, beside the card's phases 6-6c."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=out, stderr=err, text=True)
+    _BACKGROUND.append(proc)
+    return proc, out, err, time.perf_counter()
+
+
+def finished(run, what):
+    """The standard output of a ``started`` subprocess and its seconds
+    since it started, once it has ended with code 0 (killed at
+    DRYRUN_CLI_TIMEOUT_S of waiting)."""
+    proc, out, err, t0 = run
+    try:
+        proc.wait(timeout=DRYRUN_CLI_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    elapsed = time.perf_counter() - t0
+    out.seek(0)
+    err.seek(0)
+    stdout, stderr = out.read(), err.read()
+    out.close()
+    err.close()
+    require(proc.returncode == 0, (what, proc.returncode, stderr[-3000:]))
+    return stdout, elapsed
+
+
+def stop_background():
+    """Kill every ``started`` subprocess still running (a phase failed
+    before it read one)."""
+    for proc in _BACKGROUND:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_started(arch):
+    """The dry run's CLI (``launch/dryrun.py``) on ``arch`` x train_4k x
+    pod16x16, ``started`` (a ``fake`` group of 256 ranks, a 16 x 16
+    ``cpu`` mesh, fake tensors: the card is not touched), its records
+    under ``build/dryrun_<arch>``."""
+    out_dir = os.path.join(ROOT, "build", f"dryrun_{arch}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return started(["-m", "repro_torch.launch.dryrun", "--arch", arch,
+                    "--shape", "train_4k", "--mesh", "single", "--out",
+                    out_dir])
+
+
+def dryrun_cli(arch, needs, run=None):
+    """The dry run's CLI on ``arch`` x train_4k x pod16x16 (``run``, its
+    ``dryrun_started`` subprocess, or one started now): the cell must
+    trace, with a per-device FLOP count, reduce-scatters or all-reduces
+    and each collective of ``needs`` among its collectives. Prints the
+    record's line; returns the record."""
+    out_dir = os.path.join(ROOT, "build", f"dryrun_{arch}")
+    stdout, cli_s = finished(run or dryrun_started(arch),
+                             ("the dry run's CLI", arch))
+    line = [ln for ln in stdout.splitlines() if ln.startswith("[")]
+    with open(os.path.join(out_dir, f"{arch}_train_4k_pod16x16.json")) as f:
+        rec = json.load(f)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    counts = rec.get("collectives", {}).get("counts", {})
+    print(f"dry run CLI: {arch} x train_4k x pod16x16, {cli_s:.1f} s since "
+          f"its start "
+          f"(trace {rec.get('trace_s', float('nan')):.1f} s on the host): "
+          f"ok {rec['ok']}, "
+          f"{rec.get('cost_analysis', {}).get('flops', 0):.4e} FLOP a device, "
+          f"args {rec.get('arg_bytes_per_device', 0) / 1e9:.3f} GB, temp "
+          f"{rec.get('memory_analysis', {}).get('temp_size_in_bytes', 0) / 1e9:.3f}"
+          f" GB a device, collectives {counts}; error {rec.get('error')!r}; "
+          f"the CLI's line: {line[-1] if line else None!r}")
+    require(rec["ok"] and rec["cost_analysis"]["flops"] > 0
+            and counts.get("reduce-scatter", 0) + counts.get("all-reduce", 0)
+            > 0 and all(counts.get(k, 0) > 0 for k in needs),
+            ("the dry run's record", arch, rec.get("error"), counts))
+    return rec
+
+
+def world1_started():
+    """Phase 6g's world-1 trace (``DRYRUN_WORLD1``) of phase 6f's cell,
+    ``started``."""
+    return started(["-c", DRYRUN_WORLD1, ARCH, str(BATCH), str(PROMPT)])
+
+
+def train_dryrun_path(dev, runs=None):
     """Phase 6g: the dry run (``launch/dryrun.py``) on the card's machine.
     (a) Its CLI in a subprocess of its own (a ``fake`` group of 256 ranks,
     a 16 x 16 ``cpu`` mesh, fake tensors: the card is not touched):
@@ -2607,8 +2733,10 @@ def train_dryrun_path(dev):
     it and read just after (RMSNorm 4L + 1 forwards, 2L + 1 backwards):
     the two FLOP counts equal, the trace's peak (arguments + its peak of
     live bytes) within DRYRUN_PEAK_TOL of ``max_memory_allocated``, and the
-    roofline's ideal time printed beside the measured step. Returns the
-    launch counts."""
+    roofline's ideal time printed beside the measured step. ``runs``: the
+    two subprocesses already started (``dryrun_started``, ``started``),
+    keyed "cli" and "world1", else they start here. Returns the launch
+    counts."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -2618,50 +2746,19 @@ def train_dryrun_path(dev):
 
     t_phase = time.perf_counter()
     require(not dist.is_initialized(), "a process group runs before phase 6g")
-    out_dir = os.path.join(ROOT, "build", "dryrun_6g")
-    shutil.rmtree(out_dir, ignore_errors=True)
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
-         "--shape", "train_4k", "--mesh", "single", "--out", out_dir],
-        cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=DRYRUN_CLI_TIMEOUT_S)
-    cli_s = time.perf_counter() - t0
-    require(proc.returncode == 0, ("the dry run's CLI", proc.returncode,
-                                   proc.stderr[-3000:]))
-    with open(os.path.join(out_dir, f"{ARCH}_train_4k_pod16x16.json")) as f:
-        rec = json.load(f)
-    shutil.rmtree(out_dir, ignore_errors=True)
-    counts = rec.get("collectives", {}).get("counts", {})
-    print(f"dry run CLI: {ARCH} x train_4k x pod16x16 in {cli_s:.1f} s "
-          f"(trace {rec.get('trace_s', float('nan')):.1f} s on the host): ok "
-          f"{rec['ok']}, {rec.get('cost_analysis', {}).get('flops', 0):.4e} "
-          f"FLOP a device, args {rec.get('arg_bytes_per_device', 0) / 1e9:.3f}"
-          f" GB, temp {rec.get('memory_analysis', {}).get('temp_size_in_bytes', 0) / 1e9:.3f}"
-          f" GB a device, collectives {counts}; error "
-          f"{rec.get('error')!r}")
-    require(rec["ok"] and rec["cost_analysis"]["flops"] > 0
-            and counts.get("all-gather", 0) > 0
-            and counts.get("reduce-scatter", 0) + counts.get("all-reduce", 0)
-            > 0, ("the dry run's record", rec.get("error"), counts))
+    runs = runs or {"cli": dryrun_started(ARCH), "world1": world1_started()}
+    dryrun_cli(ARCH, ("all-gather",), runs["cli"])
 
     cfg = configs.get(ARCH)
     L = cfg.num_layers
     # the trace in a process of its own, as the CLI's: the fake tensors'
     # and DTensor's caches it fills stay out of this process
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", DRYRUN_WORLD1, ARCH, str(BATCH), str(PROMPT)],
-        cwd=ROOT, env=env, capture_output=True, text=True,
-        timeout=DRYRUN_CLI_TIMEOUT_S)
-    require(proc.returncode == 0, ("the world-1 trace", proc.returncode,
-                                   proc.stderr[-3000:]))
-    traced = json.loads(proc.stdout.strip().splitlines()[-1])
+    stdout, w1_s = finished(runs["world1"], "the world-1 trace")
+    traced = json.loads(stdout.strip().splitlines()[-1])
     arg_bytes = traced["arg_bytes"]
     est_gb = (arg_bytes + traced["temp_bytes"]) / 1e9
     print(f"dry run, phase 6f's cell ({BATCH} x {PROMPT}) on a world-1 mesh: "
-          f"{time.perf_counter() - t0:.1f} s in a subprocess (trace "
+          f"{w1_s:.1f} s since its subprocess started (trace "
           f"{traced['trace_s']:.1f} s), {traced['flops']:.6e} FLOP, args "
           f"{arg_bytes / 1e9:.3f} GB + peak of live bytes "
           f"{traced['temp_bytes'] / 1e9:.3f} GB = {est_gb:.3f} GB")
@@ -2762,6 +2859,68 @@ def train_moe_path(dev):
         (plain_kernels(), dataclasses.replace(cfg, attn_impl="reference")),
         _named_grads, "train granite-moe", routed=True)
     print(f"train {cfg.name}: phase 6c {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def train_moe_mesh_path(dev, run=None):
+    """Phase 6h: the MoE block's sharded form on one card. (a) The dry
+    run's CLI on granite-moe-1b-a400m x train_4k x pod16x16 (its config's
+    ``moe_impl="shard_map"``: ``moe_block_sharded`` routes each device's
+    own tokens and sums the partial outputs of its d_ff shard over
+    "model"): ``ok``, a FLOP count and all-reduces among its collectives.
+    (b) One granite-moe step at full width and depth (24 layers, d_model
+    1024, 32 experts top 8, capacity factor 1.25, BATCH x PROMPT) with no
+    mesh, through ``moe_block``, then with the state on the one-card
+    ``DeviceMesh`` under ``use_mesh``, every MoE layer through
+    ``moe_block_sharded``'s local body (``_local_shards``, counted: 2L
+    calls, the forward's and the backward's recompute, which runs on the
+    autograd engine's thread under the forward's mesh) and its
+    all-reduces over the one-rank nccl "model" group (``mesh_step``: bitwise the meshless step, RMSNorm 4L + 1 /
+    2L + 1 and no other launch, the peak printed beside phase 6c's). No
+    fallback: a failed all-reduce raises. The process group is destroyed
+    at the end. ``run``: the CLI's subprocess already started
+    (``dryrun_started``), else it starts here. Returns the launch
+    counts."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import moe
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group runs before phase 6h")
+    cfg = configs.get(MOE_ARCHS[0])
+    require(cfg.moe_impl == "shard_map", ("moe_impl", cfg.name, cfg.moe_impl))
+    dryrun_cli(cfg.name, ("all-reduce",), run)
+
+    @contextlib.contextmanager
+    def local_bodies():
+        """Each call of the sharded form's local body, counted."""
+        calls, real = [], moe._local_shards
+
+        def counted(*args, **kwargs):
+            calls.append(1)
+            return real(*args, **kwargs)
+
+        moe._local_shards = counted
+        try:
+            yield calls
+        finally:
+            moe._local_shards = real
+
+    try:
+        mesh = mesh_lib.make_local_mesh(dev)
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                "the local mesh's group")
+        launches = mesh_step(dev, cfg, mesh, "train moe mesh",
+                             TRAIN_PEAK_GB[cfg.name], "phase 6c",
+                             TRAIN_FIRST_STEP.get(cfg.name, {}),
+                             count=local_bodies, n_calls=2 * cfg.num_layers)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    require(not dist.is_initialized(), "the process group outlived phase 6h")
+    print(f"train moe mesh: phase 6h {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3981,6 +4140,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    atexit.register(stop_background)
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4011,10 +4171,17 @@ def main() -> int:
                WINDOWED_ARCH: serve_windowed(dev), **serve_moe(dev),
                VLM_ARCH: serve_vlm(dev), HYBRID_ARCH: serve_hybrid(dev),
                AUDIO_ARCH: serve_audio(dev),
-               "helix-session": session_path(dev),
+               "helix-session": session_path(dev)}
+    # the host traces of phases 6g and 6h, each in a subprocess of its
+    # own, run beside the card's phases 6-6c (none of which is timed
+    # against a bound on the host clock) and are read by 6g and 6h (which
+    # runs last)
+    traces = {"cli": dryrun_started(ARCH), "world1": world1_started(),
+              "moe": dryrun_started(MOE_ARCHS[0])}
+    by_path.update({
                "train-internlm2": train_path(dev),
                "train-internlm2-mesh": train_mesh_path(dev),
-               "train-internlm2-dryrun": train_dryrun_path(dev),
+               "train-internlm2-dryrun": train_dryrun_path(dev, traces),
                "train-mamba2": train_ssm_path(dev),
                "train-granite-moe": train_moe_path(dev),
                "train-qwen2-moe-reduced": train_moe_reduced(dev),
@@ -4023,7 +4190,11 @@ def main() -> int:
                "lm-workflow": lm_workflow_path(dev),
                "paper-workflows": paper_workflows_path(dev),
                "fleet": fleet_path(dev, smi),
-               "examples": examples_path(dev, smi)}
+               "examples": examples_path(dev, smi),
+               # last: its nccl group's first collective builds a
+               # communicator, kept away from phases 8-10's host clocks
+               "train-granite-moe-mesh": train_moe_mesh_path(dev,
+                                                             traces["moe"])})
 
     # name: (source, the TPU kernel it replaces), or (source, None, what
     # the reference does instead) for a backward the TPU package lacks

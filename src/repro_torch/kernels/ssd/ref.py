@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import torch
 
+from ...sharding import activation
+
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
             B: torch.Tensor, C: torch.Tensor, h0: torch.Tensor | None = None
@@ -40,7 +42,7 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         g = torch.exp(dt[:, t] * a)                                # (b,H)
         upd = (dt[:, t, :, None] * xf[:, t])[..., None] * Bf[:, t, None, None, :]
         h = h * g[..., None, None] + upd
-        ys.append(torch.einsum("bhpn,bn->bhp", h, Cf[:, t]))
+        ys.append(activation.einsum("bhpn,bn->bhp", h, Cf[:, t]))
     return torch.stack(ys, 1), h
 
 
@@ -77,12 +79,12 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     Cc = C.float().reshape(bsz, nc, L, N)
 
     decay = _causal_decay(csc)                                      # (b,nc,i,j,H)
-    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    cb = activation.einsum("bcin,bcjn->bcij", Cc, Bc)
     w = cb[..., None] * decay * dtc[:, :, None, :, :]               # (b,nc,i,j,H)
-    y = torch.einsum("bcijh,bcjhp->bcihp", w, xc).reshape(bsz, S, H, P)
+    y = activation.einsum("bcijh,bcjhp->bcihp", w, xc).reshape(bsz, S, H, P)
 
     dte = dtc * torch.exp(csc[:, :, -1:, :] - csc)                  # (b,nc,L,H)
-    states = torch.einsum("bcln,bclhp->bchnp", Bc, xc * dte[..., None])
+    states = activation.einsum("bcln,bclhp->bchnp", Bc, xc * dte[..., None])
     return y, states
 
 
@@ -121,15 +123,15 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     dst = dstates.float()                                         # (b,nc,H,N,P)
 
     E = _causal_decay(csc)                                        # (b,nc,i,j,H)
-    cbE = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * E
+    cbE = activation.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * E
     causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    dW = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc) * causal[:, :, None]
+    dW = activation.einsum("bcihp,bcjhp->bcijh", dyc, xc) * causal[:, :, None]
     q = dW * cbE
-    dx = torch.einsum("bcijh,bcihp->bcjhp", cbE * dtc[:, :, None], dyc)
+    dx = activation.einsum("bcijh,bcihp->bcjhp", cbE * dtc[:, :, None], dyc)
 
     seg = torch.exp(csc[:, :, -1:, :] - csc)                       # (b,nc,L,H)
     dte = dtc * seg
-    bdst = torch.einsum("bcln,bchnp->bclhp", Bc, dst)
+    bdst = activation.einsum("bcln,bchnp->bclhp", Bc, dst)
     dx = dx + dte[..., None] * bdst
     ddte = (xc * bdst).sum(-1)                                    # (b,nc,L,H)
 
@@ -139,9 +141,9 @@ def ssd_chunk_bwd_ref(x: torch.Tensor, dt: torch.Tensor, cs: torch.Tensor,
     dcs[:, :, -1] += (ddte * dte).sum(2)
 
     dcb = (dW * E * dtc[:, :, None]).sum(-1)                      # (b,nc,i,j)
-    dC = torch.einsum("bcij,bcjn->bcin", dcb, Bc)
-    dB = (torch.einsum("bcij,bcin->bcjn", dcb, Cc)
-          + torch.einsum("bclhp,bchnp->bcln", xc * dte[..., None], dst))
+    dC = activation.einsum("bcij,bcjn->bcin", dcb, Bc)
+    dB = (activation.einsum("bcij,bcin->bcjn", dcb, Cc)
+          + activation.einsum("bclhp,bchnp->bcln", xc * dte[..., None], dst))
     return (dx.reshape(bsz, S, H, P), ddt.reshape(bsz, S, H),
             dcs.reshape(bsz, S, H), dB.reshape(bsz, S, N),
             dC.reshape(bsz, S, N))

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ..kernels.flash_attention import ops as flash_ops
 from ..kernels.flash_attention.ops import GLOBAL_WINDOW
 from ..kernels.rmsnorm import ops as rmsnorm_ops
+from ..sharding import activation
 from ..sharding.activation import (batch_axes, constrain, distributed, full,
                                    model_axis, shards, splittable,
                                    write_slice)
@@ -179,7 +180,10 @@ def _sdpa_chunked(qg, k, v, q_pos, k_pos, *, causal, window, valid_len,
     for c in range(nc):
         sl = slice(c * chunk, (c + 1) * chunk)
         k_i, v_i, kp_i = k[:, sl], v[:, sl], k_pos[:, sl]
-        logits = torch.einsum("bqkgd,bskd->bkgqs", qf, k_i.float()) * scale
+        # on a mesh of several devices, on the local shards: the product
+        # would fold the batch and the queries' sequence, both sharded
+        logits = activation.einsum("bqkgd,bskd->bkgqs", qf,
+                                   k_i.float()) * scale
         rel = q_pos[:, None, None, :, None] - kp_i[:, None, None, None, :]
         mask = kp_i[:, None, None, None, :] >= 0
         if causal:
@@ -194,7 +198,7 @@ def _sdpa_chunked(qg, k, v, q_pos, k_pos, *, causal, window, valid_len,
         p = torch.exp(logits - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum(
+        acc = acc * alpha[..., None] + activation.einsum(
             "bkgqs,bskd->bkgqd", p, v_i.float())
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]

@@ -62,8 +62,9 @@ from typing import Any, NamedTuple
 import torch
 import torch.utils.checkpoint
 
-from ..sharding.activation import (batch_axes, cache_leaf, constrain,
-                                   distributed, model_axis, on_mesh)
+from ..sharding.activation import (batch_axes, cache_leaf, carried,
+                                   constrain, distributed, model_axis,
+                                   on_mesh)
 from . import layers, moe as moe_lib, ssd as ssd_lib
 from .config import ArchConfig
 from .params import P, init_params, tree_map
@@ -275,8 +276,9 @@ def _maybe_remat(fn, cfg: ArchConfig):
     reference treats alike) recomputes it in the backward, saving only its
     inputs (``jax.checkpoint``'s default); ``"dots"`` also saves the
     outputs of its products with no batch dimension (``_dots_policy``)
-    and recomputes the rest. A torch without selective checkpointing
-    cannot run ``"dots"``, and raises."""
+    and recomputes the rest. The recompute runs under the mesh and batch
+    axes of the forward (``carried``). A torch without selective
+    checkpointing cannot run ``"dots"``, and raises."""
     if cfg.remat == "none":
         return fn
     kwargs = {}
@@ -289,7 +291,7 @@ def _maybe_remat(fn, cfg: ArchConfig):
                 f"checkpointing, which torch {torch.__version__} lacks")
         kwargs["context_fn"] = functools.partial(make, _dots_policy)
     return lambda *args: torch.utils.checkpoint.checkpoint(
-        fn, *args, use_reentrant=False, **kwargs)
+        carried(fn), *args, use_reentrant=False, **kwargs)
 
 
 def forward(cfg: ArchConfig, params: dict, tokens: torch.Tensor, *,
@@ -354,14 +356,16 @@ def _ffn(cfg: ArchConfig, p: dict, h: torch.Tensor, aux: torch.Tensor
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The FFN the layer's parameters hold (the MoE block or the MLP, as
     its defs chose) added to the residual stream, and ``aux`` plus the MoE
-    block's load-balancing loss. The MoE configs name
-    ``moe_impl="shard_map"``, an expert-parallel form (ROADMAP queue 1 item
-    9c); without a mesh the reference runs ``moe_block``, on a mesh of one
-    device its ``shard_map`` form computes ``moe_block``'s function, and
-    the port runs ``moe_block`` for every ``moe_impl``."""
+    block's load-balancing loss. The MoE block's form follows
+    ``cfg.moe_impl``, as in the reference: ``"shard_map"`` expert tensor
+    parallelism, ``"a2a"`` expert parallelism, anything else the block on
+    whole tensors (each form is ``moe_block`` with no mesh)."""
     if "moe" in p:
         x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)
-        out, a = moe_lib.moe_block(cfg.moe, p["moe"], x)
+        moe_fn = {"shard_map": moe_lib.moe_block_sharded,
+                  "a2a": moe_lib.moe_block_a2a}.get(cfg.moe_impl,
+                                                    moe_lib.moe_block)
+        out, a = moe_fn(cfg.moe, p["moe"], x)
         return h + out, aux + a
     if "mlp" in p:
         x = layers.rmsnorm(h, p["ln2"], cfg.norm_eps)

@@ -35,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd import ops as ssd_ops
-from ..sharding.activation import splittable
+from ..sharding.activation import grad_laid_out, splittable
 from .config import SSMCfg
-from .layers import rmsnorm
+from .layers import _to_residual, rmsnorm
 from .params import P
 
 
@@ -175,7 +175,9 @@ def ssm_block(cfg, scfg: SSMCfg, p: dict, x: torch.Tensor,
     Returns (out (B,S,D), new_state).
     """
     bsz, S, d_model = x.shape
-    zxbcdt = x @ p["in_proj"]
+    # on a mesh of several devices, the projection's gradient comes back
+    # in its own layout, which the backward of the product can fold
+    zxbcdt = grad_laid_out(x @ p["in_proj"])
     z, xbc, dt_raw, d_in, ns, nheads = _split_proj(scfg, d_model, zxbcdt)
     a = -torch.exp(p["a_log"])                              # (H,) negative
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
@@ -218,7 +220,11 @@ def ssm_block(cfg, scfg: SSMCfg, p: dict, x: torch.Tensor,
         new_state = (new_conv_state, h_new)
 
     y = rmsnorm(y * F.silu(z.float()).to(y.dtype), p["norm_w"])
-    return (y.to(x.dtype) @ p["out_proj"]).to(x.dtype), new_state
+    # on a mesh of several devices the product over the sharded channels
+    # is reduced into the residual's layout, as the attention and MLP
+    # blocks' outputs are
+    return _to_residual((y.to(x.dtype) @ p["out_proj"]).to(x.dtype)), \
+        new_state
 
 
 def init_ssm_state(cfg, scfg: SSMCfg, batch: int,

@@ -19,9 +19,12 @@ code calls, each a no-op with no mesh and on a mesh of one device:
 (and on its gradient), ``full`` and ``on_mesh`` for the tensors a step
 makes (accumulators, positions), ``cache_leaf`` for a serving cache laid
 out as ``cache_axes`` say, ``write_slice`` for a write into a cache whose
-sequence is sharded. A plain tensor under an entry that binds an axis
-raises: executing a sharded step across devices, and the MoE block's
-sharded forms, are ROADMAP queue 1 item 9c.
+sequence is sharded, ``einsum`` for a product whose batch dims two mesh
+axes shard, ``grad_laid_out`` for a value whose gradient must come back
+in its own layout. A plain tensor under an entry that binds an axis
+raises: the steps run across devices on DTensors (the dense family's
+and the MoE block's forms on gloo ranks; the other families' are
+ROADMAP queue 1 item 9c).
 
 Also here, as pure functions of axis names and sizes (no process group):
 ``axis_sizes`` of a mesh or a ``{name: size}`` mapping, and
@@ -100,6 +103,22 @@ def use_mesh(mesh):
         _local.mesh, _local.several = prev, prev_several
 
 
+def carried(fn):
+    """``fn`` run, from whichever thread calls it, under the active mesh
+    and batch axes of this thread as they are now: a checkpointed block's
+    recompute runs in the backward, which the autograd engine runs on a
+    thread of its own for a CUDA device, with no mesh active there. ``fn``
+    itself with no mesh and the default batch axes."""
+    mesh, axes = active_mesh(), batch_axes()
+    if mesh is None and axes == BATCH_AXES:
+        return fn
+
+    def run(*args, **kwargs):
+        with use_mesh(mesh), use_batch_axes(axes):
+            return fn(*args, **kwargs)
+    return run
+
+
 def axis_sizes(mesh: Any) -> dict[str, int]:
     """``{axis name: size}`` of a ``DeviceMesh`` (its dim names and shape)
     or of a plain mapping, which is taken as it is."""
@@ -170,23 +189,26 @@ def placements(spec: tuple, ndim: int, mesh_dim_names: tuple) -> tuple:
 
 def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     """``x`` with the sharding ``axes`` resolve to on the active mesh:
-    ``x`` itself with no mesh or when every entry resolves to None, a
-    DTensor redistributed to the resolved placements; a plain tensor
-    under an entry that binds an axis raises: a sharded step runs on
-    DTensors (executing one across devices is ROADMAP queue 1 item 9c)."""
+    ``x`` itself with no mesh, or when every entry resolves to None
+    except for a DTensor on a mesh of several devices, which is made
+    whole (replicated), as the reference's constraint to an empty spec
+    does; else a DTensor redistributed to the resolved placements; a
+    plain tensor under an entry that binds an axis raises: a sharded step
+    runs on DTensors (the other families' steps across devices are
+    ROADMAP queue 1 item 9c)."""
     mesh = active_mesh()
     if mesh is None:
         return x
     entries = resolve_entries(tuple(x.shape), axes, axis_sizes(mesh))
-    if all(e is None for e in entries):
+    if all(e is None for e in entries) and not distributed(x):
         return x
     from torch.distributed.tensor import DTensor
     if not isinstance(x, DTensor):
         raise NotImplementedError(
             f"constrain{tuple(axes)} binds mesh axes {entries} but got a "
             f"plain tensor: a sharded step runs on DTensors (build_step's "
-            f"in-shardings place them); executing one across devices is "
-            f"ROADMAP queue 1 item 9c")
+            f"in-shardings place them); the other families' steps across "
+            f"devices are ROADMAP queue 1 item 9c")
     return x.redistribute(mesh, placements(entries, x.ndim,
                                            mesh.mesh_dim_names))
 
@@ -360,6 +382,37 @@ def write_slice(dst: torch.Tensor, src: torch.Tensor, dim: int,
             src.narrow(dim, lo - start, hi - lo))
 
 
+class _GradLaidOut(torch.autograd.Function):
+    """``x`` itself; its gradient redistributed to ``x``'s layout (the
+    gradient of a partial sum is whole: ``Replicate`` there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        ctx.mesh = x.device_mesh
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g.placements == ctx.placements:
+            return g
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_laid_out(x: torch.Tensor) -> torch.Tensor:
+    """``x`` whose gradient comes back laid out as ``x`` is, on a mesh of
+    several devices: before a product whose backward folds ``x``'s dims
+    (``x @ w`` folds the batch and the sequence), where DTensor may hand
+    back a gradient sharded on a dim ``x`` keeps whole (the sequence over
+    ``model``), a fold of two sharded dims it cannot carry. ``x`` itself
+    with no mesh, on a mesh of one device and for a plain tensor."""
+    if not distributed(x):
+        return x
+    return _GradLaidOut.apply(x)
+
+
 def splittable(x: torch.Tensor, *leads) -> torch.Tensor:
     """``x`` ready for each dim ``d`` with a ``leads[d]`` (None for a dim
     that is not split) to be split into (``leads[d]``, ...) by a view,
@@ -374,3 +427,89 @@ def splittable(x: torch.Tensor, *leads) -> torch.Tensor:
     if not distributed(x):
         return x
     return _Splittable.apply(x, tuple(leads))
+
+
+def _local_einsum_placements(eq: str, operands: tuple):
+    """How ``torch.einsum(eq, *operands)`` is computed on each device's
+    local shards: (mesh, the output's placements, each operand's
+    placements to take its local tensor in, and its gradient's), or None
+    where it is not. Per mesh dim, either every operand is replicated; or
+    one letter of ``eq`` is sharded there (evenly, as ``constrain`` binds
+    only divisors) in some operands and the others are replicated: an
+    operand holding the letter is cut to its shard of it (a replicated one
+    with no collective), a letter of the output gives ``Shard``, a
+    contracted one ``Partial``, and an operand without the letter a
+    ``Partial`` gradient; or one operand is a ``Partial`` sum and the others are
+    replicated (the product is linear in it): the output is ``Partial``,
+    the gradient of that operand replicated and of the others
+    ``Partial``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ins, out = eq.replace(" ", "").split("->")
+    ins = ins.split(",")
+    if (any(not isinstance(t, DTensor) for t in operands)
+            or len({t.device_mesh for t in operands}) != 1
+            or any("." in a for a in ins)):
+        return None
+    mesh = operands[0].device_mesh
+    out_pl, takes, grads = [], [[] for _ in operands], [[] for _ in operands]
+    for i in range(mesh.ndim):
+        here = [t.placements[i] for t in operands]
+        if any(type(p) not in (Shard, Replicate) and not p.is_partial()
+               for p in here):
+            return None
+        letters = {sub[p.dim] for p, sub in zip(here, ins) if type(p) is Shard}
+        partial = [j for j, p in enumerate(here) if p.is_partial()]
+        if partial:
+            if (len(partial) > 1 or letters
+                    or here[partial[0]] != Partial("sum")):
+                return None
+            out_pl.append(Partial())
+            for j, (take, g) in enumerate(zip(takes, grads)):
+                take.append(here[j])
+                g.append(Replicate() if j == partial[0] else Partial())
+            continue
+        if len(letters) > 1:
+            return None
+        if not letters:
+            out_pl.append(Replicate())
+            for take, g in zip(takes, grads):
+                take.append(Replicate())
+                g.append(Replicate())
+            continue
+        (letter,) = letters
+        for p, sub, take, g in zip(here, ins, takes, grads):
+            if letter in sub:
+                if (type(p) is Shard and p.dim != sub.index(letter)) \
+                        or sub.count(letter) > 1:
+                    return None
+                take.append(Shard(sub.index(letter)))
+                g.append(Shard(sub.index(letter)))
+            else:
+                take.append(p)
+                g.append(Partial())
+        out_pl.append(Shard(out.index(letter)) if letter in out
+                      else Partial())
+    return mesh, tuple(out_pl), takes, grads
+
+
+def einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, *operands)``; on DTensors inside ``use_mesh`` of
+    a mesh of several devices, where each mesh dim shards one letter of
+    ``eq`` in every operand that has it, computed on the local shards
+    and laid out again (``_local_einsum_placements``). DTensor turns an
+    einsum into a ``bmm`` whose batch dim folds the batch letters, and
+    cannot give a sharding to a fold of two sharded dims (the batch over
+    the data axes and the heads over ``model``: a strided shard). The
+    same ``torch.einsum`` with no mesh, on a mesh of one device, and
+    where the layouts do not allow it."""
+    if not distributed(operands[0]):
+        return torch.einsum(eq, *operands)
+    plan = _local_einsum_placements(eq, operands)
+    if plan is None:
+        return torch.einsum(eq, *operands)
+    from torch.distributed.tensor import DTensor
+    mesh, out_pl, takes, grads = plan
+    local = torch.einsum(eq, *(
+        t.redistribute(mesh, take).to_local(grad_placements=g)
+        for t, take, g in zip(operands, takes, grads)))
+    return DTensor.from_local(local, mesh, out_pl, run_check=False)

@@ -87,7 +87,14 @@ with dryrun.fake_group(16):
     # run_cell resolves the arch by name: the reduced config, 2 layers
     small = dataclasses.replace(configs.reduced(configs.get("internlm2-1.8b")),
                                 num_layers=2)
-    configs.get = lambda name: small
+    # the MoE archs (moe_impl "shard_map", their configs') at 2 layers,
+    # jamba at one group of 4, mamba2 at 2 layers, one microbatch each
+    smalls = {"internlm2-1.8b": small}
+    for name, layers in (("granite-moe-1b-a400m", 2), ("qwen2-moe-a2.7b", 2),
+                         ("jamba-v0.1-52b", 4), ("mamba2-130m", 2)):
+        smalls[name] = dataclasses.replace(configs.reduced(configs.get(name)),
+                                           num_layers=layers, grad_accum=1)
+    configs.get = smalls.__getitem__
     cells = {}
     for name, kw in (("train_4k", dict(seq=64, batch=8)),
                      ("prefill_32k", dict(seq=64, batch=8)),
@@ -104,6 +111,35 @@ with dryrun.fake_group(16):
             "ok", "error", "n_devices", "cost_analysis", "memory_analysis",
             "collectives", "arg_bytes_per_device", "trace_s")}
     out["cells"] = cells
+    moe_cells = {}
+    for arch in ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "jamba-v0.1-52b"):
+        for name in ("train_4k", "prefill_32k", "decode_32k"):
+            old = shapes.SHAPES[name]
+            shapes.SHAPES[name] = dataclasses.replace(old, seq=32, batch=8)
+            try:
+                rec = dryrun.run_cell(arch, name, multi_pod=False,
+                                      remat="none", out_dir=sys.argv[2],
+                                      mesh=mesh)
+            finally:
+                shapes.SHAPES[name] = old
+            moe_cells[f"{arch}.{name}"] = {k: rec.get(k) for k in (
+                "ok", "error", "cost_analysis", "collectives")}
+    out["moe_cells"] = moe_cells
+# the reduced mamba2's train on a fake (2, 4, 4) mesh: the batch over
+# (pod, data) and the heads over model fold into one batch dim of the SSD
+# products, which activation.einsum keeps apart
+with dryrun.fake_group(32):
+    mesh = init_device_mesh("cpu", (2, 4, 4),
+                            mesh_dim_names=("pod", "data", "model"))
+    old = shapes.SHAPES["train_4k"]
+    shapes.SHAPES["train_4k"] = dataclasses.replace(old, seq=32, batch=16)
+    try:
+        rec = dryrun.run_cell("mamba2-130m", "train_4k", multi_pod=True,
+                              remat="none", out_dir=sys.argv[2], mesh=mesh)
+    finally:
+        shapes.SHAPES["train_4k"] = old
+    out["mamba2_3d"] = {k: rec.get(k) for k in ("ok", "error", "n_devices",
+                                                "cost_analysis")}
 # the reduced step on a world-1 mesh: the trace against a real CPU step
 cfg = small
 B, S = 4, 32
@@ -134,8 +170,10 @@ print(json.dumps(out))
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
     out_dir = str(tmp_path_factory.mktemp("dryrun"))
+    moe_dir = str(tmp_path_factory.mktemp("dryrun_moe"))
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", TRACES, out_dir], env=env,
+    proc = subprocess.run([sys.executable, "-c", TRACES, out_dir, moe_dir],
+                          env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -181,6 +219,31 @@ def test_reduced_internlm2_traces_on_fake_4x4_mesh(traced, cell):
     if cell == "train_4k":     # FSDP gathers, the gradients' reductions
         assert counts["all-gather"] > 0
         assert counts["reduce-scatter"] + counts["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
+@pytest.mark.parametrize("cell", ["train_4k", "prefill_32k", "decode_32k"])
+def test_reduced_moe_archs_trace_on_fake_4x4_mesh(traced, arch, cell):
+    """The MoE configs' cells (``moe_impl="shard_map"``: routing on each
+    device's tokens) trace ``ok`` on a fake (4, 4) mesh, with the expert
+    TP's reductions among the collectives: per MoE layer at least the sum
+    of the partial outputs over "model" and the aux loss's mean."""
+    rec = traced["moe_cells"][f"{arch}.{cell}"]
+    assert rec["ok"], rec["error"]
+    assert rec["cost_analysis"]["flops"] > 0
+    n_moe = {"granite-moe-1b-a400m": 2, "qwen2-moe-a2.7b": 2,
+             "jamba-v0.1-52b": 2}[arch]
+    assert rec["collectives"]["counts"]["all-reduce"] >= 2 * n_moe
+
+
+def test_reduced_mamba2_train_traces_on_fake_2x4x4_mesh(traced):
+    """The batch over (pod, data) and the heads over "model": the SSD
+    products' batch dims stay apart (``activation.einsum``) and the
+    in-projection's gradient keeps its layout (``grad_laid_out``)."""
+    rec = traced["mamba2_3d"]
+    assert rec["ok"], rec["error"]
+    assert rec["n_devices"] == 32 and rec["cost_analysis"]["flops"] > 0
 
 
 def test_record_file_and_report(traced):

@@ -20,8 +20,16 @@ Tolerances, each stated where it is used:
   holds the reference's own (both packages run bf16 and round it at other
   places);
 - training as ``tests/test_torch_train.py`` holds it: the fp32 loss of
-  bf16 logits at 1e-4, the grad norm at 2e-3, each leaf's first moment at
-  3e-2 of its max.
+  bf16 logits at 1e-4, the grad norm at 2e-3, the step's update element
+  by element in units of its lr, and each leaf's moments after the step:
+  the first at 6e-2 of its max, the second at twice that. The moments'
+  bound is the measured floor's: ``tests/torch_twin_tolerance.py`` reads
+  the reference against itself (attention ``"reference"`` against
+  ``"chunked"``) at up to 3.86e-2 in the first moment and 7.16e-2 in the
+  second over 200 salted inits, 3.89e-2 and 5.66e-2 over hash seeds 0–63,
+  always at the encoder's attention biases, where 3e-2 failed the port in
+  about one process in 30 (4.51e-2 at hash seed 23); the port reads 3.83e-2
+  and 7.20e-2 salted, 4.51e-2 and 5.30e-2 over the hash seeds.
 
 The reference's init draws other weights in every process (its leaf keys
 hash strings), so no check may rest on a property of those weights. A
@@ -51,11 +59,16 @@ from repro_torch.models import (convert, encdec as tencdec, layers as tlayers,
 from repro_torch.models.params import P as TP, tree_map
 from repro_torch.train import steps as tsteps
 from test_torch_hybrid import _flat, _jflat
+from test_torch_moe_train import _assert_updates_close
 
 NAME = "whisper-medium"
 REL_TOL = 3e-2
 CROSS_TOL = 1e-5
 GRAD_RTOL = 3e-2       # bf16 gradients, relative to each leaf's max |g|
+# the train step's first moments (v at twice it), relative to each leaf's
+# max: the reference against itself reads up to 3.89e-2 at the encoder's
+# attention biases (tests/torch_twin_tolerance.py; module docstring)
+M_RTOL = 6e-2
 LOSS_RTOL = 1e-4       # the fp32 loss of bf16 logits
 GNORM_RTOL = 2e-3      # the fp32 norm over every bf16 gradient
 B, S_ENC, PREFILL, TOTAL = 2, 16, 12, 18
@@ -366,34 +379,40 @@ def test_encdec_loss_fn_matches_reference(models):
 
 def test_encdec_train_step_at_grad_accum_2_matches_reference():
     """One ``train_step`` at ``grad_accum`` 2 from the same state and batch
-    (frames split into microbatches along B): loss and grad norm, and
-    every leaf's first moment, which after one step is 0.1 x the clipped
-    gradient (bf16 gradients: 3e-2 of the leaf's max). The cross-attention
-    biases, which neither package adds, get zero gradients in both."""
+    (frames split into microbatches along B): loss and grad norm; the
+    step's update of every leaf element by element in units of its lr
+    (``_assert_updates_close``: an update skipped reads about 1, one of
+    the wrong sign about 2); every leaf's moments, the first (0.1 x the
+    clipped gradient) at M_RTOL of its max and the second at twice it, the
+    measured floor's bound (module docstring). The cross-attention biases,
+    which neither package adds, get zero gradients in both."""
     jcfg = dataclasses.replace(jconfigs.reduced(jconfigs.get(NAME)),
                                grad_accum=2)
     tcfg = dataclasses.replace(tconfigs.reduced(tconfigs.get(NAME)),
                                grad_accum=2)
-    jstate = jsteps.init_train_state(jcfg, jax.random.PRNGKey(0))
-    tstate = convert.train_state_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jstate))
+    j0 = jsteps.init_train_state(jcfg, jax.random.PRNGKey(0))
+    t0 = convert.train_state_from_numpy(jax.tree_util.tree_map(np.asarray, j0))
     toks, frames = _inputs(jcfg, 16, seed=8, batch=4)
     jf, tf = _bf16(frames)
-    jstate, jmet = jax.jit(lambda s, b: jsteps.train_step(jcfg, s, b))(
-        jstate, {"tokens": jnp.asarray(toks), "frames": jf})
-    tstate, tmet = tsteps.train_step(
-        tcfg, tstate, {"tokens": torch.from_numpy(toks), "frames": tf})
+    j1, jmet = jax.jit(lambda s, b: jsteps.train_step(jcfg, s, b))(
+        j0, {"tokens": jnp.asarray(toks), "frames": jf})
+    t1, tmet = tsteps.train_step(
+        tcfg, t0, {"tokens": torch.from_numpy(toks), "frames": tf})
     assert rel_err(jmet["loss"], _np(tmet["loss"])) < LOSS_RTOL
     assert rel_err(jmet["grad_norm"], _np(tmet["grad_norm"])) < GNORM_RTOL
+    _assert_updates_close(j0, j1, t0, t1, float(jmet["lr"]), GRAD_RTOL, [])
     names = [jax.tree_util.keystr(p) for p, _ in
-             jax.tree_util.tree_flatten_with_path(jstate.opt.m)[0]]
-    for name, a, b in zip(names, jax.tree_util.tree_leaves(jstate.opt.m),
-                          tree_leaves(tstate.opt.m)):
-        if "xattn" in name and "'b" in name:
-            assert not np.asarray(a).any() and not b.any(), name
-            continue
-        assert float(b.abs().max()) > 0, name
-        assert rel_err(a, _np(b)) < GRAD_RTOL, (name, rel_err(a, _np(b)))
+             jax.tree_util.tree_flatten_with_path(j1.opt.m)[0]]
+    for tree, tol in (("m", M_RTOL), ("v", 2 * M_RTOL)):
+        for name, a, b in zip(names,
+                              jax.tree_util.tree_leaves(getattr(j1.opt, tree)),
+                              tree_leaves(getattr(t1.opt, tree))):
+            if "xattn" in name and "'b" in name:
+                assert not np.asarray(a).any() and not b.any(), (tree, name)
+                continue
+            assert float(b.abs().max()) > 0, (tree, name)
+            err = rel_err(a, _np(b))
+            assert err < tol, (tree, name, err, tol)
 
 
 # ----------------------------------------------------------------- serving

@@ -178,6 +178,13 @@ SHARDING_MODULES = ("repro_torch.sharding", "repro_torch.sharding.rules",
 DRYRUN_MODULES = ("repro_torch.launch.shapes", "repro_torch.launch.dryrun",
                   "repro_torch.launch.roofline",
                   "repro_torch.launch.dryrun_report")
+# the MoE block's sharded forms and what makes every dry-run cell trace:
+# the forms, their dispatch in the stacks, the local-shard einsum and the
+# gradient layout helper, and the SSD products that use them
+MOE_FORM_MODULES = ("repro_torch.models.moe", "repro_torch.models.lm",
+                    "repro_torch.sharding.activation",
+                    "repro_torch.models.ssd", "repro_torch.models.layers",
+                    "repro_torch.kernels.ssd.ref")
 
 
 def test_port_imports_no_jax_ml_dtypes_or_reference():
@@ -192,7 +199,9 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
     engine benches, the by-name bench CLI and the eight examples, and the
     sharding substrate (rules, activation constraints, the mesh functions,
     the spec resolver and the launchers that place state on the mesh), and
-    the dry run's modules (shapes, the trace, the roofline, the report)."""
+    the dry run's modules (shapes, the trace, the roofline, the report),
+    and the modules of the MoE block's sharded forms (the forms, their
+    dispatch, the local-shard einsum and the SSD products using it)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -217,6 +226,8 @@ def test_port_imports_no_jax_ml_dtypes_or_reference():
         "assert set(sharding) <= set(mods), sorted(set(sharding) - set(mods))\n"
         f"dry = {list(DRYRUN_MODULES)!r}\n"
         "assert set(dry) <= set(mods), sorted(set(dry) - set(mods))\n"
+        f"forms = {list(MOE_FORM_MODULES)!r}\n"
+        "assert set(forms) <= set(mods), sorted(set(forms) - set(mods))\n"
         f"sys.path.insert(0, {ROOT!r})\n"
         "import chip_smoke\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
