@@ -140,6 +140,15 @@ Phases (any failure exits non-zero; none is caught and passed over):
      all-reduces over the one-rank nccl group, bitwise the meshless step
      through ``moe_block``, RMSNorm 4L + 1 / 2L + 1 launches and no
      other;
+  6i. (after 6h, on a one-rank nccl group of its own) the other families'
+     train steps on the one-card mesh: one mamba2-130m step (6b's config)
+     and one whisper-medium step at full width and depth (24 + 24 layers,
+     1,500 frames, 448 decoder tokens), each bitwise the meshless step
+     with its launches (RMSNorm 4L + 1 / 2L + 1, SSD 2L / L on the
+     tensor-core kernels; whisper RMSNorm 242 / 122, no flash); between
+     them ``optim.compress.compress_psum`` of mamba2's gradients twice
+     over the mesh's "data" group, bitwise the dequantized g + r, the
+     residual carried, a CPU copy within one quantization step;
   6b. the same for mamba2-130m at full width and depth (24 layers,
      d_model 768, chunk 128): the SSD chunk kernel (twice a layer a step
      under remat, all tensor-core) and its backward kernel (once), the
@@ -309,6 +318,7 @@ JAMBA_SSD = (BATCH, PROMPT, 128, 64, 16, 128)
 # non-causal over every frame (no tile divides 1,500), then the decoder's
 # causal self-attention over its cache
 AUDIO_ARCH, AUDIO_FRAMES, AUDIO_PROMPT = "whisper-medium", 1500, 128
+AUDIO_DEC_TOKENS = 448      # phase 6i: whisper's decoder length in training
 WHISPER_ENCODER = (BATCH, AUDIO_FRAMES, AUDIO_FRAMES, 16, 16, 64, False, 0, 0)
 WHISPER_DEC_PREFILL = (BATCH, AUDIO_PROMPT, AUDIO_PROMPT + GEN, 16, 16, 64,
                        True, 0, 0)
@@ -2462,20 +2472,24 @@ def train_path(dev):
 
 
 def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
-              count=None, n_calls=None):
+              count=None, n_calls=None, expect=None, batcher=None):
     """One train step of ``cfg`` (BATCH x PROMPT, the trainer's loop)
-    twice from the same init and batch: with no mesh (its loss, grad norm
-    and updated params kept, the params on the host), then with the state
-    placed on the one-card ``mesh`` (``launch.train.state_shardings`` and
-    ``models.params.place``, each DTensor's local tensor the tensor it was
-    made from) under ``use_mesh``, the main path, with the counts set to 0
-    just before it and read just after: RMSNorm 4L + 1 forwards and 2L + 1
-    backwards, no other launch; its loss, grad norm and every updated
-    param bitwise the meshless step's, its peak memory within
-    MESH_PEAK_SLACK_GB of ``ref_peak_gb`` (``ref_name``'s, printed beside
-    with ``ref_metrics``). ``count`` (a context manager yielding a list)
-    counts calls on the main path; it must count ``n_calls``. Returns the
-    launch counts."""
+    twice from the same init and batch: with no mesh (its loss, grad norm,
+    updated params and launches kept, the params on the host), then with
+    the state placed on the one-card ``mesh``
+    (``launch.train.state_shardings`` and ``models.params.place``, each
+    DTensor's local tensor the tensor it was made from) under
+    ``use_mesh``, the main path, with the counts set to 0 just before it
+    and read just after: each kernel launched as often as in the meshless
+    step, and as ``expect`` says (every count not in it 0; by default
+    RMSNorm 4L + 1 forwards and 2L + 1 backwards, no other launch); its
+    loss, grad norm and every updated param bitwise the meshless step's,
+    its peak memory within MESH_PEAK_SLACK_GB of ``ref_peak_gb``
+    (``ref_name``'s, printed beside with ``ref_metrics``; with None, only
+    printed). ``count`` (a context manager yielding a list) counts calls
+    on the main path; it must count ``n_calls``. ``batcher`` (the batch of
+    step 0 from ``batch_at(0)``) defaults to a ``TokenBatcher`` over the
+    synthetic corpus. Returns the launch counts."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.core.tree import tree_leaves, tree_map
@@ -2487,9 +2501,11 @@ def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
     from repro_torch.train import steps
 
     L = cfg.num_layers
-    tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
-                             cfg.vocab_size)
-    batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
+    if batcher is None:
+        tokens = synth.lm_tokens(SEED, max(2_000_000,
+                                           BATCH * (PROMPT + 1) * 4),
+                                 cfg.vocab_size)
+        batcher = TokenBatcher(tokens, BATCH, PROMPT, seed=SEED)
 
     def init():
         return steps.init_train_state(
@@ -2499,18 +2515,26 @@ def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
         return train.train(cfg, state, batcher, 0, 1, lr=TRAIN_LR,
                            total_steps=TRAIN_TOTAL, device=dev, log_every=1)
 
+    counters = launch_counters()
     t0 = time.perf_counter()
-    plain = one_step(init())
+    state = init()
+    torch.cuda.synchronize()
+    _reset(counters)
+    plain = one_step(state)
+    torch.cuda.synchronize()
+    meshless = _read(counters)
+    del state
     want = plain.metrics[0]
     want_params = tree_map(lambda t: t.cpu(), plain.state.params)
     del plain
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    ref = (f"; {ref_name}'s first step: loss {ref_metrics.get('loss')!r} "
+           f"grad norm {ref_metrics.get('grad_norm')!r}" if ref_metrics
+           else "")
     print(f"{label}: the meshless step, {time.perf_counter() - t0:.1f} s "
           f"with its init and the params' copy to the host: loss "
-          f"{want['loss']!r} grad norm {want['grad_norm']!r}; {ref_name}'s "
-          f"first step: loss {ref_metrics.get('loss')!r} grad norm "
-          f"{ref_metrics.get('grad_norm')!r}")
+          f"{want['loss']!r} grad norm {want['grad_norm']!r}{ref}")
 
     torch.cuda.reset_peak_memory_stats(dev)
     state = init()
@@ -2526,7 +2550,6 @@ def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
           f"local tensor the storage it was made from: {aliased}")
     require(aliased, "a placed leaf does not alias its tensor")
 
-    counters = launch_counters()
     torch.cuda.synchronize()
     with count() if count else contextlib.nullcontext() as calls:
         _reset(counters)
@@ -2544,20 +2567,26 @@ def mesh_step(dev, cfg, mesh, label, ref_peak_gb, ref_name, ref_metrics,
             "params": same_bits(res.state.params, want_params)}
     del res, want_params
     torch.cuda.empty_cache()
-    expect = {k: 0 for k in counters}
-    expect.update(rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1)
-    limit = ref_peak_gb + MESH_PEAK_SLACK_GB
+    want_launches = {k: 0 for k in counters}
+    want_launches.update(expect if expect is not None else dict(
+        rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1))
+    ref_peak = "not measured" if ref_peak_gb is None \
+        else f"{ref_peak_gb:.2f} GB"
     print(f"{label}: the step on the mesh {step_s * 1e3:.1f} ms (host clock, "
           f"the trainer's loop, ending in a sync); loss {got['loss']!r} grad "
           f"norm {got['grad_norm']!r}; bitwise the meshless step: {same}; "
-          f"launches {launches}; calls counted "
-          f"{None if calls is None else len(calls)}; peak memory "
-          f"{peak_gb:.2f} GB ({ref_name}: {ref_peak_gb:.2f} GB)")
-    require(launches == expect, (label, "launches", launches, expect))
+          f"launches {launches} (the meshless step's: {meshless}); calls "
+          f"counted {None if calls is None else len(calls)}; peak memory "
+          f"{peak_gb:.2f} GB ({ref_name}: {ref_peak})")
+    require(launches == meshless, (label, "launches", launches, meshless))
+    require(launches == want_launches,
+            (label, "launches", launches, want_launches))
     require(all(same.values()), (label, "the step on the mesh differs", same))
     require(calls is None or len(calls) == n_calls,
             (label, "calls on the main path", calls and len(calls), n_calls))
-    require(peak_gb <= limit, (label, "peak memory", peak_gb, limit))
+    if ref_peak_gb is not None:
+        limit = ref_peak_gb + MESH_PEAK_SLACK_GB
+        require(peak_gb <= limit, (label, "peak memory", peak_gb, limit))
     return launches
 
 
@@ -2922,6 +2951,151 @@ def train_moe_mesh_path(dev, run=None):
     require(not dist.is_initialized(), "the process group outlived phase 6h")
     print(f"train moe mesh: phase 6h {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+class FramesBatcher:
+    """whisper's batch of step 0: AUDIO_FRAMES seeded random frames a row
+    (bf16, on the card) and a TokenBatcher's decoder tokens."""
+
+    def __init__(self, cfg, dev, seq):
+        from repro_torch.data import synth
+        from repro_torch.data.pipeline import TokenBatcher
+        tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (seq + 1) * 4),
+                                 cfg.vocab_size)
+        self.tokens = TokenBatcher(tokens, BATCH, seq, seed=SEED)
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        self.frames = torch.randn(BATCH, AUDIO_FRAMES, cfg.d_model,
+                                  generator=g, device=dev).bfloat16()
+
+    def batch_at(self, step):
+        return dict(self.tokens.batch_at(step), frames=self.frames)
+
+
+def mesh_compress(dev, cfg, mesh):
+    """Phase 6i (b): ``optim.compress.compress_psum`` of ``cfg``'s
+    gradients (its init, the trainer's batch of step 0, ``value_and_grad``
+    under ``use_mesh``) twice over the one-rank nccl group of ``mesh``'s
+    "data" dim, the residual carried from the first call to the second.
+    Each call's reduced leaves must be bitwise the dequantized g + r cast
+    to g's dtype, computed on the card with no collective (a sum over one
+    rank), and its residual bitwise (g + r) - sent; a CPU copy of the same
+    leaves quantized on the host must reduce to within one quantization
+    step (the leaf's scale) of the card's. Prints each call's seconds and
+    the int8 bytes (a byte an element and a 4-byte scale a leaf) it would
+    put on the wire. Returns each call's seconds."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import synth
+    from repro_torch.data.pipeline import TokenBatcher, batch_to
+    from repro_torch.optim import compress
+    from repro_torch.sharding.activation import use_mesh
+    from repro_torch.train import steps
+
+    tokens = synth.lm_tokens(SEED, max(2_000_000, BATCH * (PROMPT + 1) * 4),
+                             cfg.vocab_size)
+    batch = batch_to(TokenBatcher(tokens, BATCH, PROMPT,
+                                  seed=SEED).batch_at(0), dev)
+    state = steps.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    with use_mesh(mesh):
+        _, grads = steps.value_and_grad(cfg, state.params, batch)
+    del state
+    ef = compress.ef_init(grads)
+    leaves = tree_leaves(grads)
+    wire = sum(g.numel() + 4 for g in leaves)
+    nbytes = sum(g.numel() * g.element_size() for g in leaves)
+    dtypes = sorted({str(g.dtype).removeprefix("torch.") for g in leaves})
+    seconds, worst_cpu = [], 0.0
+    for call in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        red, new = compress.compress_psum(grads, ef, (mesh, "data"))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        bitwise = residual = True
+        for g, r, got, got_r in zip(leaves, tree_leaves(ef.residual),
+                                    tree_leaves(red),
+                                    tree_leaves(new.residual)):
+            gf = g.float() + r
+            q, scale = compress.quantize_int8(gf)
+            sent = compress.dequantize_int8(q, scale)
+            bitwise &= same_bits(got, sent.to(g.dtype))
+            residual &= same_bits(got_r, gf - sent)
+            cf = g.cpu().float() + r.cpu()
+            cq, cscale = compress.quantize_int8(cf)
+            host = compress.dequantize_int8(cq, cscale).to(g.dtype)
+            gap = float((got.cpu().float() - host.float()).abs().max())
+            worst_cpu = max(worst_cpu, gap / float(cscale))
+            require(gap <= float(cscale), ("compress vs the CPU", call, gap,
+                                           float(cscale)))
+        print(f"train mesh compress: call {call + 1}: {len(leaves)} leaves, "
+              f"{seconds[-1] * 1e3:.2f} ms (host clock, ending in a sync); "
+              f"{wire} int8 bytes on the wire (the gradients: {nbytes} "
+              f"bytes, {'/'.join(dtypes)}); reduced bitwise the "
+              f"dequantized g + r: {bitwise}; residual bitwise (g + r) - "
+              f"sent: {residual}; the CPU's within {worst_cpu:.3g} of a "
+              f"quantization step")
+        require(bitwise and residual, ("compress", call, bitwise, residual))
+        ef = new
+    return seconds
+
+
+def train_mesh_families_path(dev):
+    """Phase 6i: the other families' train steps on the one-card mesh.
+    (a) mamba2-130m at full width and depth (phase 6b's config: 24 layers,
+    d_model 768, chunk 128, BATCH x PROMPT) once with no mesh and once
+    with the state on the one-card ``DeviceMesh`` under ``use_mesh``
+    (``mesh_step``): bitwise the meshless step; RMSNorm 4L + 1 forwards
+    and 2L + 1 backwards, SSD 2L on the tensor-core chunk kernel and its
+    backward L on ``ssd_bwd_tc``, nothing else; the peak within
+    MESH_PEAK_SLACK_GB of phase 6b's. (b) ``compress_psum`` of its
+    gradients over the mesh's "data" group (``mesh_compress``). (c)
+    whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d_model 1024, BATCH x AUDIO_FRAMES frames and 448 decoder
+    tokens), the audio family's first full-width training on the card:
+    bitwise the meshless step, the RMSNorm forward and backward counts of
+    the meshless step and no other launch (training attends through the
+    chunked path, so no flash launch); its peak printed. No fallback: a
+    failed all-reduce or a missing nccl raises. The process group is
+    destroyed at the end. Returns the launch counts of (a) and (c)."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    require(not dist.is_initialized(), "a process group runs before phase 6i")
+    with mesh_lib.local_mesh(dev) as mesh:
+        require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                "the local mesh's group")
+        cfg = configs.get(SSM_ARCH)
+        L = cfg.num_layers
+        ssm = mesh_step(dev, cfg, mesh, "train mamba2 mesh",
+                        TRAIN_PEAK_GB[cfg.name], "phase 6b",
+                        TRAIN_FIRST_STEP.get(cfg.name, {}), expect=dict(
+                            rmsnorm=4 * L + 1, rmsnorm_bwd=2 * L + 1,
+                            ssd=2 * L, ssd_tc=2 * L, ssd_bwd=L,
+                            ssd_bwd_tc=L))
+        t0 = time.perf_counter()
+        mesh_compress(dev, cfg, mesh)
+        print(f"train mesh compress: phase 6i (b) "
+              f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        cfg = configs.get(AUDIO_ARCH)
+        require(cfg.attn_impl != "flash", ("whisper trains", cfg.attn_impl))
+        ed = cfg.encdec
+        # remat "block": each layer's norms twice (the forward and the
+        # backward's recompute), enc_norm and the final norm once; each
+        # norm's backward once
+        audio = mesh_step(
+            dev, cfg, mesh, "train whisper mesh", None, "no earlier phase",
+            {}, expect=dict(
+                rmsnorm=4 * ed.enc_layers + 6 * ed.dec_layers + 2,
+                rmsnorm_bwd=2 * ed.enc_layers + 3 * ed.dec_layers + 2),
+            batcher=FramesBatcher(cfg, dev, AUDIO_DEC_TOKENS))
+    require(not dist.is_initialized(), "the process group outlived phase 6i")
+    print(f"train mesh families: phase 6i {time.perf_counter() - t_phase:.1f} s")
+    return ssm, audio
 
 
 def train_moe_reduced(dev):
@@ -4195,6 +4369,9 @@ def main() -> int:
                # communicator, kept away from phases 8-10's host clocks
                "train-granite-moe-mesh": train_moe_mesh_path(dev,
                                                              traces["moe"])})
+    # phase 6i after 6h, on a group of its own
+    by_path.update(zip(("train-mamba2-mesh", "train-whisper-mesh"),
+                       train_mesh_families_path(dev)))
 
     # name: (source, the TPU kernel it replaces), or (source, None, what
     # the reference does instead) for a backward the TPU package lacks

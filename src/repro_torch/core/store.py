@@ -651,8 +651,14 @@ class Store:
         sibling + ``os.replace`` (readers only ever see a whole file; a
         failed write — ENOSPC… — leaves the original intact and cleans
         the staging file). Returns False on failure — callers treat the
-        rewrite as best-effort."""
-        tmp = f"{path}.{os.getpid()}-{threading.get_ident()}"
+        rewrite as best-effort. The staging name carries ``.tmp-`` as
+        every staging name does: an entry's ``meta.json`` is rewritten
+        inside the entry's directory (``_note_load``), and the remote
+        uploader, which lists that directory, skips such names; a staged
+        file listed there and replaced before the uploader read it
+        aborted the upload, so a shared entry's lease was released with
+        nothing committed remotely and another host computed it again."""
+        tmp = f"{path}.tmp-{os.getpid()}-{threading.get_ident()}"
         try:
             with open(tmp, "w") as f:
                 json.dump(obj, f)

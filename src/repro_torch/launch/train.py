@@ -150,8 +150,8 @@ def main(argv: list[str] | None = None) -> TrainResult:
 
     if args.production_mesh:
         raise NotImplementedError(
-            "--production-mesh needs a sharded train step and the sharded "
-            "checkpoint and data paths (ROADMAP queue 1 item 9d, after 9c)")
+            "--production-mesh needs the sharded checkpoint and data paths "
+            "(ROADMAP queue 1 item 9d)")
     dev = resolve(args.device)
     cfg = configs.get(args.arch)
     if args.reduced:

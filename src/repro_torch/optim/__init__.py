@@ -1,8 +1,7 @@
-"""Optimizers (twin of the JAX package's ``optim``): AdamW and the LR
-schedules. ``compress.py`` (bf16 gradients on the wire) is ROADMAP
-queue 1 item 9c."""
-from . import adamw, schedules
+"""Optimizers (twin of the JAX package's ``optim``): AdamW, the LR
+schedules and ``compress`` (the int8 all-reduce with error feedback)."""
+from . import adamw, compress, schedules
 from .adamw import AdamWState, clip_by_global_norm, global_norm
 
-__all__ = ["adamw", "schedules", "AdamWState", "clip_by_global_norm",
-           "global_norm"]
+__all__ = ["adamw", "compress", "schedules", "AdamWState",
+           "clip_by_global_norm", "global_norm"]

@@ -22,9 +22,8 @@ out as ``cache_axes`` say, ``write_slice`` for a write into a cache whose
 sequence is sharded, ``einsum`` for a product whose batch dims two mesh
 axes shard, ``grad_laid_out`` for a value whose gradient must come back
 in its own layout. A plain tensor under an entry that binds an axis
-raises: the steps run across devices on DTensors (the dense family's
-and the MoE block's forms on gloo ranks; the other families' are
-ROADMAP queue 1 item 9c).
+raises: the steps of every family run across devices on DTensors, laid
+out by ``launch/shapes.py`` ``build_step``'s in-shardings.
 
 Also here, as pure functions of axis names and sizes (no process group):
 ``axis_sizes`` of a mesh or a ``{name: size}`` mapping, and
@@ -194,8 +193,7 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     whole (replicated), as the reference's constraint to an empty spec
     does; else a DTensor redistributed to the resolved placements; a
     plain tensor under an entry that binds an axis raises: a sharded step
-    runs on DTensors (the other families' steps across devices are
-    ROADMAP queue 1 item 9c)."""
+    runs on DTensors."""
     mesh = active_mesh()
     if mesh is None:
         return x
@@ -206,9 +204,9 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     if not isinstance(x, DTensor):
         raise NotImplementedError(
             f"constrain{tuple(axes)} binds mesh axes {entries} but got a "
-            f"plain tensor: a sharded step runs on DTensors (build_step's "
-            f"in-shardings place them); the other families' steps across "
-            f"devices are ROADMAP queue 1 item 9c")
+            f"plain tensor: on a mesh of several devices pass the step "
+            f"DTensors (distribute its inputs by build_step's "
+            f"in-shardings, or place them with models.params.place)")
     return x.redistribute(mesh, placements(entries, x.ndim,
                                            mesh.mesh_dim_names))
 

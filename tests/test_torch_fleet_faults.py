@@ -13,10 +13,15 @@
 * the owning server's maintenance thread reclaims remote orphans;
 * the fleet router fails a job over from a shard that dies mid-run
   without recomputing the prefix the remote tier holds, and a shard that
-  leaves and rejoins moves only its own rendezvous keys.
+  leaves and rejoins moves only its own rendezvous keys;
+* an entry's ``meta.json`` rewritten by a concurrent load while the
+  entry uploads does not abort the upload (a shared entry's lease would
+  be released with nothing committed remotely, and the other host of
+  ``launch.bench_fleet``'s ``remote_reuse`` computed it again).
 
 Seed: ``HELIX_CHAOS_SEED`` (default 1234) drives every ``FaultPlan``.
 """
+import json
 import os
 import threading
 import time
@@ -524,3 +529,46 @@ def test_entry_committed_before_the_lease_is_loaded_not_recomputed(
     assert set(rep.execution.deduped) >= {"src", "feat"}
     assert rep.outputs["out"]["score"] == want["out"]["score"]
     assert store.lease_counts() == {"compute": 0, "pins": 0, "waiters": 0}
+
+
+def test_upload_is_not_aborted_by_a_meta_rewrite_staged_in_the_entry(
+        tmp_path, monkeypatch):
+    """``_note_load`` rewrites an entry's ``meta.json`` through a file
+    staged beside it, in the entry's directory. The uploader lists that
+    directory, then reads each file: a staged file it listed and the
+    rewrite replaced before the read would abort the upload (a raced
+    local eviction, to the uploader), and the executor would release a
+    shared signature's lease with nothing committed remotely. Opened
+    deterministically: the upload runs while the rewrite is staged, and
+    the rewrite lands at the upload's first object put."""
+    store = Store(str(tmp_path / "local"))
+    sig = "ab" + "0" * 62
+    store.save(sig, "x", np.arange(6.0))
+    d = store._dir(sig)
+    tier = RemoteStore(_bucket(tmp_path))
+    real_replace, got = os.replace, []
+
+    def replace(src, dst):
+        if got or dst != os.path.join(d, "meta.json"):
+            return real_replace(src, dst)
+        with open(dst) as f:
+            meta = json.load(f)
+        real_put = tier.objects.put
+
+        def put(key, data):
+            if os.path.exists(src):
+                real_replace(src, dst)
+            return real_put(key, data)
+
+        monkeypatch.setattr(tier.objects, "put", put)
+        got.append(tier.upload(sig, d, meta))
+        if os.path.exists(src):
+            real_replace(src, dst)
+
+    monkeypatch.setattr(os, "replace", replace)
+    store._note_load(sig)
+    assert got == [True]
+    marker = tier.marker_meta(sig, fresh=True)
+    assert marker is not None and sorted(marker["files"]) == sorted(
+        n for n in os.listdir(d))
+    assert json.load(open(os.path.join(d, "meta.json")))["loads"] == 1

@@ -166,17 +166,20 @@ def tree(p, f):
 
 
 def run(impl, mcfg, p, x, ct, mesh):
-    """The form on DTensors (weights replicated, tokens over "data"):
-    the whole output, aux, dx and each weight's gradient."""
+    """The form on DTensors (weights replicated, tokens over "data"; each
+    rank cuts its shard from its own copy, with no collective, as
+    ``tests/torch_sharded_ranks.py`` ``on`` says why): the whole output,
+    aux, dx and each weight's gradient."""
     rep = [Replicate()] * mesh.ndim
-    dp = tree(p, lambda w: distribute_tensor(torch.from_numpy(w), mesh, rep
-                                             ).requires_grad_())
+    dp = tree(p, lambda w: distribute_tensor(
+        torch.from_numpy(w), mesh, rep, src_data_rank=None).requires_grad_())
     bat = [Shard(0), Replicate()]
-    dx = distribute_tensor(torch.from_numpy(x), mesh, bat).requires_grad_()
+    dx = distribute_tensor(torch.from_numpy(x), mesh, bat,
+                           src_data_rank=None).requires_grad_()
     with use_mesh(mesh):
         o, a = impl(mcfg, dp, dx)
-        (o * distribute_tensor(torch.from_numpy(ct), mesh, bat)).sum(
-            ).backward()
+        (o * distribute_tensor(torch.from_numpy(ct), mesh, bat,
+                               src_data_rank=None)).sum().backward()
     return (o.full_tensor(), a.full_tensor(), dx.grad.full_tensor(),
             [w.grad.full_tensor() for w in leaves(dp)], str(o.placements))
 
@@ -228,13 +231,16 @@ def einsums(mesh):
             db = DTensor.from_local(mine, mesh, pb,
                                     run_check=False).requires_grad_()
         else:
-            db = distribute_tensor(b, mesh, pb).requires_grad_()
-        da = distribute_tensor(a, mesh, pa).requires_grad_()
+            db = distribute_tensor(b, mesh, pb,
+                                   src_data_rank=None).requires_grad_()
+        da = distribute_tensor(a, mesh, pa, src_data_rank=None
+                               ).requires_grad_()
         local = activation._local_einsum_placements(eq, (da, db)) is not None
         with use_mesh(mesh):
             o = activation.einsum(eq, da, db)
         ct = torch.randn(tuple(o.shape), generator=g)
-        (o * distribute_tensor(ct, mesh, [R(), R()])).sum().backward()
+        (o * distribute_tensor(ct, mesh, [R(), R()], src_data_rank=None)
+         ).sum().backward()
         wa, wb = a.clone().requires_grad_(), b.clone().requires_grad_()
         want = torch.einsum(eq, wa, wb)
         (want * ct).sum().backward()

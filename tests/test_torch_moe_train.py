@@ -57,6 +57,7 @@ from repro_torch.models import (convert, lm as tlm, moe as tmoe,
 from repro_torch.models.config import MoECfg as TMoECfg
 from repro_torch.models.params import tree_map
 from repro_torch.train import steps as tsteps
+from torch_sharded_ranks import update_error
 from test_torch_moe import (CASES, _bits, _moe_case, _reference_trace,
                             port_picks, reference_picks)
 
@@ -481,16 +482,12 @@ def _assert_updates_close(j_old, j_new, t_old, t_new, lr, tol, resolved):
                tree_leaves(t_old.params), tree_leaves(t_new.params))
     for i, (name, a0, a1, m0, m1, b0, b1) in enumerate(rows):
         bits = {torch.bfloat16: 7, torch.float32: 23}[b1.dtype]
-        a0, a1, m0, m1, b0, b1 = map(_np, (a0, a1, m0, m1, b0, b1))
-        g = (m1 - 0.9 * m0) / 0.1
-        now = np.abs(g) > 4 * tol * np.abs(g).max()
+        err, now = update_error(*map(_np, (a0, a1, m0, m1, b0, b1)),
+                                bits, tol, lr)
         if first:
             resolved.append(now)
         else:
             resolved[i] &= now
-        big = np.maximum(np.maximum(np.abs(a1), np.abs(b1)), 1e-30)
-        ulp = 2.0 ** (np.floor(np.log2(big)) - bits)
-        err = (np.abs((a1 - a0) - (b1 - b0)) - ulp) / lr
         held = float(err[resolved[i]].max(initial=0.0))
         assert held < UPDATE_TOL, (name, held)
         if first:

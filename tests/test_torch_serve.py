@@ -140,7 +140,7 @@ CORE_MODULES = ("tree", "dag", "workflow", "signature", "oep", "omp", "costs",
 
 
 TRAIN_MODULES = ("repro_torch.optim.adamw", "repro_torch.optim.schedules",
-                 "repro_torch.train.steps", "repro_torch.data.pipeline",
+                 "repro_torch.optim.compress", "repro_torch.train.steps", "repro_torch.data.pipeline",
                  "repro_torch.checkpoint.ckpt", "repro_torch.launch.train",
                  "repro_torch.launch.bench_tier", "repro_torch.workflows")
 

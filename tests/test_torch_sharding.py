@@ -297,7 +297,7 @@ with tact.use_mesh(mesh):
         tact.constrain(full, tact.batch_axes(), None, None)
         raise SystemExit("a plain tensor under a binding axis passed")
     except NotImplementedError as e:
-        assert "9c" in str(e), e
+        assert "plain tensor" in str(e) and "DTensors" in str(e), e
 try:
     tparams.place({"w": full}, {"w": tparams.NamedSharding(mesh, ())})
     raise SystemExit("place on two devices passed")
@@ -313,7 +313,8 @@ def test_constrain_redistributes_a_dtensor_on_two_gloo_ranks(tmp_path):
     DTensor under ``constrain(x, batch_axes(), None, "model")`` on the
     (2, 1) local mesh comes back sharded over "data" (each rank its half
     of the batch, the whole tensor gathered back); a plain tensor under
-    the same binding raises (item 9c), and so does ``place`` (item 9d)."""
+    the same binding raises, naming the DTensors a sharded step takes,
+    and so does ``place`` (item 9d)."""
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("MASTER_ADDR", None)
     env.pop("MASTER_PORT", None)
